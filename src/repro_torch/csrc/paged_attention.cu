@@ -1,0 +1,165 @@
+// K2a paged_attention: one-token GQA decode through a paged KV pool, for
+// Hopper (sm_90a). Float pools (bf16 or fp32), no window.
+//
+// Replaces: src/repro/kernels/paged_attention/paged_attention.py:
+// paged_attention_pallas with a float pool and window=None (kernel body
+// _kernel). The TPU kernel runs a (slot, logical block) grid with the block
+// table scalar-prefetched into the K/V index maps and carries the online
+// softmax state (m, l, acc) in VMEM scratch across a slot's blocks. Here one
+// thread block owns one (slot b, KV head h) pair, reads its own table row and
+// pos[b], and walks logical blocks 0 .. pos[b] // bs in a loop; the carry
+// lives in registers.
+//
+// What bounds it on an H100: bytes. Every cached K/V element is used for
+// 2 FLOPs per query head of its group (G = 8 at full width), far below the
+// ridge, so the floor is the K/V bytes of the tokens each row attends.
+// What the design does about it:
+//   * each K/V block of head h is read from device memory once per thread
+//     block (coalesced, staged to shared memory as fp32) and reused by the G
+//     warps of the group, one warp per query head;
+//   * entries of -1 and blocks past pos are never read (the TPU kernel's
+//     `run` predicate minus the window terms), and the last block stops at
+//     column pos, so no masked score is computed;
+//   * per token: a warp-reduced q.k (lane d holds q[d], q[d+32], ...), times
+//     hd**-0.5, optional tanh softcap, then an online-softmax update of the
+//     warp's m, l and acc registers. Probabilities stay fp32, as in the TPU
+//     kernel.
+//   * finalize writes acc / max(l, 1e-30) in fp32.
+// Not done here: splitting long rows across blocks (flash-decoding) and
+// packing several tokens per warp step; a later change can add them.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// NPL: head-dim elements per lane (hd <= 32 * NPL).
+template <typename T, int NPL>
+__global__ void paged_attention_kernel(
+    const __nv_bfloat16* __restrict__ q, const T* __restrict__ k_pool,
+    const T* __restrict__ v_pool, const int* __restrict__ table,
+    const int* __restrict__ pos, float* __restrict__ out, int KV, int G,
+    int hd, int bs, int max_blocks, float scale, float softcap) {
+  extern __shared__ float smem[];
+  float* ks = smem;            // (bs, hd) K of the current block, head h
+  float* vs = smem + bs * hd;  // (bs, hd) V
+
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int warp = threadIdx.x / 32;  // query head within the group
+  const int lane = threadIdx.x % 32;
+  const int p = pos[b];
+
+  const size_t qo = (((size_t)b * KV + h) * G + warp) * hd;
+  float qv[NPL], acc[NPL];
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int d = lane + 32 * i;
+    qv[i] = d < hd ? __bfloat162float(q[qo + d]) : 0.f;
+    acc[i] = 0.f;
+  }
+  float m = -1e30f, l = 0.f;
+
+  const int last = p < 0 ? -1 : min(p / bs, max_blocks - 1);
+  for (int j = 0; j <= last; ++j) {
+    const int phys = table[(size_t)b * max_blocks + j];
+    if (phys < 0) continue;  // uniform over the block: no divergent barrier
+    for (int i = threadIdx.x; i < bs * hd; i += blockDim.x) {
+      const int t = i / hd, d = i % hd;
+      const size_t off = (((size_t)phys * bs + t) * KV + h) * hd + d;
+      ks[i] = to_float(k_pool[off]);
+      vs[i] = to_float(v_pool[off]);
+    }
+    __syncthreads();
+    const int ntok = min(bs, p - j * bs + 1);
+    for (int t = 0; t < ntok; ++t) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const int d = lane + 32 * i;
+        if (d < hd) dot = fmaf(qv[i], ks[t * hd + d], dot);
+      }
+      float s = warp_sum(dot) * scale;
+      if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
+      const float m_new = fmaxf(m, s);
+      const float alpha = expf(m - m_new);
+      const float pe = expf(s - m_new);
+      l = l * alpha + pe;
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const int d = lane + 32 * i;
+        if (d < hd) acc[i] = acc[i] * alpha + pe * vs[t * hd + d];
+      }
+      m = m_new;
+    }
+    __syncthreads();
+  }
+
+  const float denom = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int d = lane + 32 * i;
+    if (d < hd) out[qo + d] = acc[i] / denom;
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k_pool, const void* v_pool,
+           const int* table, const int* pos, float* out, int B, int KV, int G,
+           int hd, int bs, int max_blocks, float scale, float softcap,
+           cudaStream_t stream) {
+  const dim3 grid(B, KV);
+  const dim3 block(G * 32);
+  const size_t smem = 2 * (size_t)bs * hd * sizeof(float);
+  const auto* qq = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const T*>(k_pool);
+  const auto* vp = static_cast<const T*>(v_pool);
+  if (hd <= 32) {
+    paged_attention_kernel<T, 1><<<grid, block, smem, stream>>>(
+        qq, kp, vp, table, pos, out, KV, G, hd, bs, max_blocks, scale, softcap);
+  } else if (hd <= 64) {
+    paged_attention_kernel<T, 2><<<grid, block, smem, stream>>>(
+        qq, kp, vp, table, pos, out, KV, G, hd, bs, max_blocks, scale, softcap);
+  } else if (hd <= 128) {
+    paged_attention_kernel<T, 4><<<grid, block, smem, stream>>>(
+        qq, kp, vp, table, pos, out, KV, G, hd, bs, max_blocks, scale, softcap);
+  } else if (hd <= 256) {
+    paged_attention_kernel<T, 8><<<grid, block, smem, stream>>>(
+        qq, kp, vp, table, pos, out, KV, G, hd, bs, max_blocks, scale, softcap);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q (B, KV, G, hd) bf16; k_pool/v_pool (num_blocks, bs, KV, hd) bf16 when
+// pool_bf16 else fp32; table (B, max_blocks) int32 (-1 = unallocated);
+// pos (B,) int32; out (B, KV, G, hd) fp32. softcap <= 0 means none.
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int paged_attention_bf16q(const void* q, const void* k_pool,
+                                     const void* v_pool, const int* table,
+                                     const int* pos, float* out, int B, int KV,
+                                     int G, int hd, int bs, int max_blocks,
+                                     int pool_bf16, float scale, float softcap,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pool_bf16) {
+    return launch<__nv_bfloat16>(q, k_pool, v_pool, table, pos, out, B, KV, G,
+                                 hd, bs, max_blocks, scale, softcap, s);
+  }
+  return launch<float>(q, k_pool, v_pool, table, pos, out, B, KV, G, hd, bs,
+                       max_blocks, scale, softcap, s);
+}

@@ -1,0 +1,127 @@
+"""Attention: GQA with global causal masks, dense prefill and paged decode.
+
+Counterpart of ``repro/models/attention.py`` for global layers:
+
+  * ``attention_train`` -- dense causal attention over a whole (padded)
+    prompt. ``repro`` runs it as two bf16 einsums with fp32 accumulation
+    outside any Pallas kernel, so it stays plain PyTorch here, with the same
+    cast points (no fused library attention).
+  * ``attention_decode_paged`` -- one-token decode through a paged KV pool:
+    the new K/V is written into the pool, then ``paged_attention_op`` (the
+    K2a CUDA kernel on the card) attends through the block table.
+
+Sliding-window (local) layers, windows and sinks come with ROADMAP queue 1
+items 13-14.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sites import QuantContext
+from repro_torch.kernels.paged_attention.ops import paged_attention_op
+
+from .layers import COMPUTE_DTYPE, apply_rope, qmatmul, softcap
+
+NEG_INF = -1e30
+
+
+def init_attn(cfg: ModelConfig, *, reps: int, generator, device):
+    """Scan-stacked (reps, ...) q/k/v/o weights, ``randn / sqrt(fan_in)``."""
+    d, hd = cfg.d_model, cfg.head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+
+    def w(shape, fan_in):
+        return torch.randn((reps,) + shape, generator=generator,
+                           device=device) / fan_in ** 0.5
+
+    return {
+        "wq": w((d, h * hd), d),
+        "wk": w((d, kv * hd), d),
+        "wv": w((d, kv * hd), d),
+        "wo": w((h * hd, d), h * hd),
+    }
+
+
+def _project_qkv(qc: QuantContext, p, x, cfg: ModelConfig, positions):
+    """Shared q/k/v projection + rope. x: (B, S, d)."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = qmatmul(qc, "attn_q", x, p["wq"]).reshape(b, s, h, hd)
+    k = qmatmul(qc, "attn_k", x, p["wk"]).reshape(b, s, kv, hd)
+    v = qmatmul(qc, "attn_v", x, p["wv"]).reshape(b, s, kv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _repeat_kv(t, groups: int):
+    """(B, S, KV, hd) -> (B, S, KV*groups, hd)."""
+    b, s, kv, hd = t.shape
+    return t[:, :, :, None, :].expand(b, s, kv, groups, hd).reshape(
+        b, s, kv * groups, hd)
+
+
+def attention_train(qc: QuantContext, p, x, cfg: ModelConfig, *,
+                    positions=None):
+    """Causal attention over a whole sequence. Returns (y, (k, v))."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(qc, p, x, cfg, positions)
+    groups = cfg.n_heads // cfg.n_kv_heads
+    k_r, v_r = _repeat_kv(k, groups), _repeat_kv(v, groups)
+    # bf16 operands, fp32 products and sums (the einsums' preferred type)
+    logits = torch.einsum(
+        "bqhd,bkhd->bhqk", q.to(COMPUTE_DTYPE).to(torch.float32),
+        k_r.to(COMPUTE_DTYPE).to(torch.float32)) * cfg.head_dim ** -0.5
+    logits = softcap(logits, cfg.attn_softcap)
+    idx = torch.arange(s, device=x.device)
+    mask = idx[:, None] >= idx[None, :]
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(COMPUTE_DTYPE)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(torch.float32),
+                       v_r.to(torch.float32)).to(COMPUTE_DTYPE)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    y = qmatmul(qc, "attn_o", out, p["wo"])
+    return qc.act("attn_o", y), (k, v)
+
+
+def attention_decode_paged(qc: QuantContext, p, x, pool: dict, block_table,
+                           pos, cfg: ModelConfig, *, write_mask=None):
+    """One-token decode through a paged KV pool.
+
+    ``pool``: {"k", "v"} of (num_blocks, bs, KV, hd), one layer's physical
+    block pool; ``block_table``: (B, max_blocks) int32 (-1 = unallocated);
+    ``pos``: (B,) int32. The new K/V lands at physical block
+    ``table[b, pos // bs]`` offset ``pos % bs``; rows outside
+    ``write_mask`` (and rows whose block is unallocated) write to the
+    reserved garbage block 0. Unlike ``repro``, which returns a new pool,
+    the write is IN PLACE (``index_put_``): the pool is the largest tensor
+    of a decode step and copying it per layer per token would dominate.
+
+    Returns (y, pool).
+    """
+    b = x.shape[0]
+    q, k, v = _project_qkv(qc, p, x, cfg, pos[:, None])
+    bs = pool["k"].shape[1]
+    mb = block_table.shape[1]
+    lp = torch.clamp(pos, 0, mb * bs - 1).to(torch.int64)
+    rows = torch.arange(b, device=x.device)
+    phys = block_table[rows, lp // bs]
+    ok = phys >= 0
+    if write_mask is not None:
+        ok = ok & write_mask.to(torch.bool)
+    tgt = torch.where(ok, phys, 0).to(torch.int64)
+    off = lp % bs
+    pool["k"].index_put_((tgt, off), k[:, 0].to(pool["k"].dtype))
+    pool["v"].index_put_((tgt, off), v[:, 0].to(pool["v"].dtype))
+
+    groups = cfg.n_heads // cfg.n_kv_heads
+    qg = q[:, 0].reshape(b, cfg.n_kv_heads, groups, cfg.head_dim)
+    out = paged_attention_op(qg.to(COMPUTE_DTYPE), pool["k"], pool["v"],
+                             block_table, pos, softcap=cfg.attn_softcap)
+    out = out.to(COMPUTE_DTYPE).reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    y = qmatmul(qc, "attn_o", out, p["wo"])
+    return qc.act("attn_o", y), pool

@@ -1,0 +1,325 @@
+"""Config-driven decoder: dense global-attention + SwiGLU blocks.
+
+Counterpart of ``repro/models/transformer.py`` for the dense decoder that
+``tinyllama-1.1b`` is. Parameters keep ``repro``'s layout: ``params
+["blocks"][pi]`` holds pattern entry ``pi`` with every leaf stacked along a
+leading ``R = n_layers // len(block_pattern)`` axis, and where ``repro``
+scans over that axis the port runs a Python loop over ``r``. Quantization
+state for stacked sites is stacked the same way and sliced per layer
+(``_layer_qc``), so site keys are ``repro``'s letter for letter
+(``p0_global/attn/attn_q.w``, ``head.w``).
+
+Entry points:
+  init_params(cfg, seed, device=...)
+  collect_sites(cfg) / site_weights(params, cfg)
+  prefill_slot(qc, params, tokens, plen, cache, slot, cfg, block_table=...)
+                                                   -> logits, cache
+  decode_step(qc, params, cache, tokens, cfg, ...) -> logits, cache
+  init_paged_cache(cfg, batch, num_blocks, block_size, ...)
+
+Other block kinds (local, ssm, recurrent), MoE, qk-norm, qkv-bias, M-RoPE,
+sandwich norms and modality stubs come with ROADMAP queue 1 item 14.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sites import QuantContext, SiteInfo
+from repro_torch.device import resolve_device
+from repro_torch.serving import kv_pool
+
+from . import attention as attn
+from .layers import COMPUTE_DTYPE, glu_mlp, init_glu_mlp, qmatmul, rms_norm, \
+    softcap
+
+
+def check_supported(cfg: ModelConfig):
+    """Reject configs outside this slice (dense global attention + SwiGLU)."""
+    unported = []
+    if cfg.block_pattern != ("global",):
+        unported.append(f"block_pattern={cfg.block_pattern}")
+    if cfg.n_experts:
+        unported.append("MoE")
+    if cfg.mlp != "swiglu":
+        unported.append(f"mlp={cfg.mlp}")
+    for flag in ("qkv_bias", "qk_norm", "post_norm", "scale_embed"):
+        if getattr(cfg, flag):
+            unported.append(flag)
+    if cfg.mrope_sections is not None:
+        unported.append("M-RoPE")
+    if not cfg.embed_input:
+        unported.append("embed_input=False")
+    if unported:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(unported)} is ported with ROADMAP queue "
+            f"1 item 14 (other block kinds and archs)")
+
+
+# ---------------------------------------------------------------------------
+# Parameters and sites
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
+    """Random parameters in ``repro``'s layout from a seeded
+    ``torch.Generator`` on ``device`` (``None`` = the card). The numbers
+    differ from ``repro``'s ``jax.random`` ones; tests that compare the two
+    packages build params in ``repro`` and convert them (``bridge``)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    reps = cfg.pattern_repeats
+    d = cfg.d_model
+    block = {
+        "ln1": torch.zeros((reps, d), device=dev),
+        "attn": attn.init_attn(cfg, reps=reps, generator=gen, device=dev),
+        "ln2": torch.zeros((reps, d), device=dev),
+        "mlp": init_glu_mlp(d, cfg.d_ff, reps=reps, generator=gen,
+                            device=dev),
+    }
+    params = {"blocks": [block], "rem": [],
+              "final_norm": torch.zeros((d,), device=dev)}
+    params["embed"] = torch.randn((cfg.padded_vocab, d), generator=gen,
+                                  device=dev) * 0.02
+    if not cfg.tie_embeddings:
+        params["head"] = torch.randn((d, cfg.padded_vocab), generator=gen,
+                                     device=dev) * 0.02
+    return params
+
+
+# (site, (params group, leaf)) per block, in repro's registration order
+_BLOCK_SITES = (
+    ("attn/attn_q", ("attn", "wq")), ("attn/attn_k", ("attn", "wk")),
+    ("attn/attn_v", ("attn", "wv")), ("attn/attn_o", ("attn", "wo")),
+    ("ffn/mlp_gate", ("mlp", "w_gate")), ("ffn/mlp_up", ("mlp", "w_up")),
+    ("ffn/mlp_down", ("mlp", "w_down")),
+)
+
+
+def _block_weight_shapes(cfg: ModelConfig) -> dict:
+    d, hd, h, kv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    return {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd),
+            "wo": (h * hd, d), "w_gate": (d, cfg.d_ff),
+            "w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d)}
+
+
+def collect_sites(cfg: ModelConfig) -> dict[str, SiteInfo]:
+    """Every matmul site of the model, as ``repro``'s collect-mode trace
+    records it (same names, shapes, stack counts and order), listed from
+    the config instead of traced."""
+    check_supported(cfg)
+    shapes = _block_weight_shapes(cfg)
+    sites = {}
+    for pi, kind in enumerate(cfg.block_pattern):
+        for site, (_, leaf) in _BLOCK_SITES:
+            name = f"p{pi}_{kind}/{site}"
+            k, n = shapes[leaf]
+            sites[name] = SiteInfo(
+                name=name, weight_shape=(k, n), fan_in=k, out_features=n,
+                positions=1, stack=cfg.pattern_repeats, active_frac=1.0,
+                act_quantized=True)
+    sites["head"] = SiteInfo(
+        name="head", weight_shape=(cfg.d_model, cfg.padded_vocab),
+        fan_in=cfg.d_model, out_features=cfg.padded_vocab, positions=1,
+        stack=1, active_frac=1.0, act_quantized=False)
+    return sites
+
+
+def site_weights(params, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """"<site>.w" -> the site's weight, stacked along the scan axis (what
+    ``repro``'s export-mode forward captures). A single-repeat pattern
+    entry is unstacked, as ``repro`` applies it without a scan."""
+    out = {}
+    for pi, kind in enumerate(cfg.block_pattern):
+        bp = params["blocks"][pi]
+        for site, (group, leaf) in _BLOCK_SITES:
+            w = bp[group][leaf]
+            out[f"p{pi}_{kind}/{site}.w"] = w if cfg.pattern_repeats > 1 \
+                else w[0]
+    out["head.w"] = params["head"] if "head" in params else params["embed"].T
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Per-layer slices
+# ---------------------------------------------------------------------------
+
+
+def _tree_index(tree, r: int):
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _layer_qc(qc: QuantContext, prefix: str, r: int, stacked: bool):
+    """The child context of layer ``r`` of pattern entry ``prefix``: its
+    slice of the stacked serve state over the parent's. Built once per
+    (prefix, r) and kept on ``qc``."""
+    key = (prefix, r)
+    sub = qc.slices.get(key)
+    if sub is None:
+        mine = prefix + "/"
+
+        def sl(v):
+            return v.layer(r) if stacked else v
+
+        sub = qc.child(
+            qweights={k: sl(v) for k, v in qc.qweights.items()
+                      if k.startswith(mine)},
+            specs={k: sl(v) for k, v in qc.specs.items()
+                   if k.startswith(mine)})
+        qc.slices[key] = sub
+    return sub
+
+
+def _layers(qc: QuantContext, params, cache, cfg: ModelConfig):
+    """Yield (child qc, block params, cache entry, prefix) per layer."""
+    reps = cfg.pattern_repeats
+    for pi, kind in enumerate(cfg.block_pattern):
+        prefix = f"p{pi}_{kind}"
+        for r in range(reps):
+            lc = {name: t[r] for name, t in cache["layers"][pi].items()}
+            yield (_layer_qc(qc, prefix, r, reps > 1),
+                   _tree_index(params["blocks"][pi], r), lc, prefix)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+
+def _embed(qc: QuantContext, params, batch, cfg: ModelConfig):
+    h = params["embed"][batch].to(COMPUTE_DTYPE)
+    return qc.input(h).to(COMPUTE_DTYPE)
+
+
+def _head(qc: QuantContext, params, h, cfg: ModelConfig):
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    w = params["head"] if "head" in params else params["embed"].T
+    logits = qmatmul(qc, "head", h, w).to(torch.float32)
+    logits = softcap(logits, cfg.logit_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e30
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _apply_block_full(qc, bp, h, cfg: ModelConfig, *, positions):
+    """Full-sequence block. Returns (h, (k, v)) with k/v in bf16."""
+    resid = h
+    hn = rms_norm(h, bp["ln1"], cfg.norm_eps)
+    with qc.scope("attn"):
+        y, (k, v) = attn.attention_train(qc, bp["attn"], hn, cfg,
+                                         positions=positions)
+    h = resid + y.to(resid.dtype)
+    resid = h
+    hn = rms_norm(h, bp["ln2"], cfg.norm_eps)
+    with qc.scope("ffn"):
+        y = glu_mlp(qc, bp["mlp"], hn, cfg.mlp)
+    h = resid + y.to(resid.dtype)
+    return h, (k.to(COMPUTE_DTYPE), v.to(COMPUTE_DTYPE))
+
+
+def _apply_block_decode(qc, bp, h, pool, pos, cfg: ModelConfig, *,
+                        block_table, write_mask):
+    resid = h
+    hn = rms_norm(h, bp["ln1"], cfg.norm_eps)
+    with qc.scope("attn"):
+        y, _ = attn.attention_decode_paged(
+            qc, bp["attn"], hn, pool, block_table, pos, cfg,
+            write_mask=write_mask)
+    h = resid + y.to(resid.dtype)
+    resid = h
+    hn = rms_norm(h, bp["ln2"], cfg.norm_eps)
+    with qc.scope("ffn"):
+        y = glu_mlp(qc, bp["mlp"], hn, cfg.mlp)
+    return resid + y.to(resid.dtype)
+
+
+def _require_paged(block_table):
+    if block_table is None:
+        raise NotImplementedError(
+            "the contiguous (ring) KV layout is ported with ROADMAP queue 1 "
+            "item 10; pass a block_table (paged layout)")
+
+
+# ---------------------------------------------------------------------------
+# Prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def prefill_slot(qc: QuantContext, params, tokens, plen: int, cache, slot: int,
+                 cfg: ModelConfig, *, block_table=None, start_blk: int = 0):
+    """Batched prefill for one serving slot through the paged cache.
+
+    ``tokens``: (1, S_pad) int, right-padded; ``plen`` the real length. Runs
+    the whole padded prompt through one causal forward, scatters each
+    layer's K/V into the pools at the physical ids of the slot's table row
+    (``kv_pool.write_prompt_blocks``, blocks below ``start_blk`` skipped),
+    and sets the slot's pos to ``plen``. The pools and ``cache["pos"]`` are
+    updated IN PLACE (``repro`` returns a new cache). Returns
+    (logits (1, S_pad, V), cache); the slot's first token is
+    ``argmax(logits[0, plen - 1])``.
+    """
+    _require_paged(block_table)
+    h = _embed(qc, params, tokens, cfg)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    row = block_table[slot]
+    bs = cache["layers"][0]["k"].shape[-3]
+    nblk = -(-plen // bs)
+    for sub, bp, pool, prefix in _layers(qc, params, cache, cfg):
+        with sub.scope(prefix):
+            h, (k, v) = _apply_block_full(sub, bp, h, cfg,
+                                          positions=positions)
+        kv_pool.write_prompt_blocks(pool, k[0], v[0], row, start_blk, nblk,
+                                    bs)
+    cache["pos"][slot] = plen
+    return _head(qc, params, h, cfg), cache
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
+                     block_size: int, *, kv_dtype=torch.bfloat16,
+                     device=None):
+    """Decode cache with paged attention layers: per pattern entry a pool
+    ``(R, num_blocks, bs, KV, hd)`` addressed through the engine's block
+    table, plus the per-row ``pos`` vector."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    layers = []
+    for _ in cfg.block_pattern:
+        one = kv_pool.init_pool(cfg, num_blocks, block_size, dtype=kv_dtype,
+                                device=dev)
+        layers.append({name: torch.stack([t] * cfg.pattern_repeats)
+                       for name, t in one.items()})
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "layers": layers}
+
+
+def decode_step(qc: QuantContext, params, cache, tokens, cfg: ModelConfig, *,
+                advance=None, block_table=None):
+    """One decode step for the whole batch. tokens: (B,) int.
+
+    ``cache["pos"]`` is per row, so slots decode at independent positions.
+    ``advance`` ((B,) bool/int) selects which rows bump their position;
+    rows that do not advance write their K/V to the garbage block. The
+    pools are written IN PLACE; the returned cache carries a new ``pos``.
+    Returns (logits (B, 1, V), cache).
+    """
+    _require_paged(block_table)
+    pos = cache["pos"]
+    write_mask = None if advance is None else advance.to(torch.bool)
+    h = _embed(qc, params, tokens[:, None], cfg)
+    for sub, bp, pool, prefix in _layers(qc, params, cache, cfg):
+        with sub.scope(prefix):
+            h = _apply_block_decode(sub, bp, h, pool, pos, cfg,
+                                    block_table=block_table,
+                                    write_mask=write_mask)
+    logits = _head(qc, params, h, cfg)
+    adv = 1 if advance is None else advance.to(pos.dtype)
+    return logits, {"pos": pos + adv, "layers": cache["layers"]}

@@ -1,0 +1,117 @@
+"""QuantSpec / QuantizedTensor: the quantization representation that goes
+from controller to kernel.
+
+Counterpart of ``repro/quant/spec.py`` for the int8 storage class.
+``QuantSpec`` is one site's frozen bits/range/sign; ``QuantizedTensor`` is
+one frozen weight: int8 codes ``(..., K, N)`` plus the affine terms, with
+``codes * scale + bias`` on the exact ``core.quantizer.quantize`` grid.
+Packed 2/4-bit storage comes with ROADMAP queue 1 item 7.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.gates import gate_to_bits
+from repro_torch.core.quantizer import quantize_to_int
+
+# Integer storage classes the serving path can carry (bits -> packed words).
+STORAGE_CLASSES = (2, 4, 8)
+SERVE_MIN_BITS = 2
+
+
+def storage_class_for(max_bits: int) -> int | None:
+    """Smallest 2/4/8-bit storage class holding ``max_bits``-bit codes, or
+    ``None`` above the serving GEMM's 8-bit ceiling."""
+    max_bits = max(int(max_bits), SERVE_MIN_BITS)
+    for b in STORAGE_CLASSES:
+        if max_bits <= b:
+            return b
+    return None
+
+
+@dataclasses.dataclass
+class QuantSpec:
+    """Per-site quantization spec: gate-group shaped ``bits``/``beta``
+    (leading stack axis for scan-stacked sites) and a static sign."""
+
+    bits: torch.Tensor
+    beta: torch.Tensor
+    signed: bool
+
+    @classmethod
+    def from_gate(cls, gate, beta, signed: bool) -> "QuantSpec":
+        """Freeze a trained gate into a spec: ``bits = T(max(g, 0.5))``."""
+        return cls(bits=gate_to_bits(gate),
+                   beta=torch.as_tensor(beta, dtype=torch.float32),
+                   signed=bool(signed))
+
+    def max_bits(self) -> int:
+        """Largest bit-width in the spec (host sync; export time only)."""
+        return int(self.bits.max().item())
+
+    def storage_bits(self) -> int | None:
+        return storage_class_for(self.max_bits())
+
+    def layer(self, r: int) -> "QuantSpec":
+        """Layer ``r`` of a scan-stacked spec."""
+        return QuantSpec(bits=self.bits[r], beta=self.beta[r],
+                         signed=self.signed)
+
+
+def specs_from_state(gates: dict, betas: dict, signed: dict) -> dict:
+    """Controller state -> one ``QuantSpec`` per gated key."""
+    return {k: QuantSpec.from_gate(g, betas[k], signed[k])
+            for k, g in gates.items()}
+
+
+@dataclasses.dataclass
+class QuantizedTensor:
+    """One exported weight: int8 codes ``(..., K, N)`` + affine terms.
+
+    ``scale``/``bias`` broadcast against the codes (``(..., 1, N)`` for
+    per-channel sites); ``colsum`` is the int32 K-sum of the codes, frozen
+    at export for the integer GEMM of a later slice.
+    """
+
+    codes: torch.Tensor
+    scale: torch.Tensor
+    bias: torch.Tensor
+    storage_bits: int
+    k: int
+    colsum: torch.Tensor | None = None
+
+    @classmethod
+    def from_float(cls, w, bits, beta, signed: bool, *,
+                   storage_bits: int) -> "QuantizedTensor":
+        """Freeze ``w`` on the ``bits`` grid into int8 storage."""
+        if storage_bits != 8:
+            raise NotImplementedError(
+                f"packed {storage_bits}-bit storage is ported with ROADMAP "
+                f"queue 1 item 7 (mixed sub-byte weights)")
+        codes, scale, bias = quantize_to_int(w, bits, beta, signed)
+        colsum = codes.to(torch.int32).sum(dim=-2)
+        # elementwise ops keep the strides of a transposed input (the tied
+        # head's embed.T); the kernels read row-major (K, N) codes
+        return cls(codes=codes.to(torch.int8).contiguous(), scale=scale,
+                   bias=bias, storage_bits=8, k=int(w.shape[-2]),
+                   colsum=colsum)
+
+    def layer(self, r: int) -> "QuantizedTensor":
+        """Layer ``r`` of a scan-stacked export (views, no copy)."""
+        return QuantizedTensor(
+            codes=self.codes[r], scale=self.scale[r], bias=self.bias[r],
+            storage_bits=self.storage_bits, k=self.k,
+            colsum=None if self.colsum is None else self.colsum[r])
+
+    def dequantize(self) -> torch.Tensor:
+        """fp32 weight on the exact fake-quant grid."""
+        return self.codes.to(torch.float32) * self.scale + self.bias
+
+    def codes_bytes(self) -> int:
+        return self.codes.numel()
+
+    def aux_bytes(self) -> int:
+        return 4 * (self.scale.numel() + self.bias.numel())

@@ -1,0 +1,156 @@
+"""Paged KV cache: block pool, block tables, device-resident allocator.
+
+Counterpart of ``repro/serving/kv_pool.py`` for float pools without prefix
+sharing. Each attention layer keeps a pool of ``num_blocks`` fixed-size
+token blocks ``{"k": (num_blocks, bs, KV, hd), "v": ...}``; every slot owns
+a row of the shared block table ``(slots, max_blocks)`` mapping its logical
+blocks to physical ids (``-1`` = unallocated). The allocator state is four
+device tensors -- a free stack (``free`` + ``n_free``), per-block ``ref``
+counts and the table -- and every transition is device-side
+gather/scatter, so none of them makes the host wait for the card.
+
+The allocator functions are functional like ``repro``'s (they return a new
+state dict; the tensors are small). ``write_prompt_blocks`` writes the
+pools IN PLACE: they are large.
+
+Physical block 0 is the reserved garbage block: writes by rows that must
+not touch the pool go there, and no valid table entry ever names it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+FLOAT_POOL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def init_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
+              dtype=torch.bfloat16, *, device):
+    """One attention layer's K/V block pool (unstacked), zero-filled."""
+    if dtype not in FLOAT_POOL_DTYPES:
+        raise NotImplementedError(
+            f"KV pools of {dtype} are ported with ROADMAP queue 1 item 8 "
+            f"(quantized KV cache); float pools are bf16 or fp32")
+    shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_alloc(num_blocks: int, slots: int, max_blocks: int, *, device):
+    """Allocator state. Block 0 is the garbage block, so the free stack
+    starts with blocks ``1 .. num_blocks-1`` (``n_free`` of them)."""
+    i32 = dict(dtype=torch.int32, device=device)
+    free = torch.cat([torch.arange(1, num_blocks, **i32),
+                      torch.zeros((1,), **i32)])
+    ref = torch.zeros((num_blocks,), **i32)
+    ref[0] = 1
+    return {
+        "free": free,
+        "n_free": torch.tensor(num_blocks - 1, **i32),
+        "ref": ref,
+        "table": torch.full((slots, max_blocks), -1, **i32),
+    }
+
+
+def _i32(t):
+    return t.to(torch.int32)
+
+
+def alloc_range(alloc, slot: int, start: int, n: int):
+    """Pop ``n`` fresh blocks into ``table[slot, start:start+n]`` (ref=1).
+    The caller guarantees ``n <= n_free`` (the engine sizes the pool so a
+    full slot complement always fits)."""
+    nb = alloc["free"].shape[0]
+    mb = alloc["table"].shape[1]
+    j = torch.arange(mb, device=alloc["free"].device)
+    take = (j >= start) & (j < start + n)
+    si = alloc["n_free"] - 1 - (j - start)
+    ids = alloc["free"][torch.clamp(si, 0, nb - 1).long()]
+    table = alloc["table"].clone()
+    table[slot] = torch.where(take, ids, table[slot])
+    return {
+        "free": alloc["free"],
+        "n_free": alloc["n_free"] - n,
+        "ref": alloc["ref"].index_add(0, torch.where(take, ids, 0).long(),
+                                      _i32(take)),
+        "table": table,
+    }
+
+
+def free_slot(alloc, slot: int):
+    """Retire a slot: decref every valid table entry, push blocks whose
+    refcount hits 0 back on the stack (in row order), clear the row."""
+    nb = alloc["free"].shape[0]
+    row = alloc["table"][slot]
+    valid = row >= 0
+    safe = torch.where(valid, row, 0).long()
+    ref = alloc["ref"].index_add(0, safe, -_i32(valid))
+    freed = valid & (ref[safe] == 0)
+    rank = torch.cumsum(_i32(freed), 0) - 1
+    # Junk lanes write free[nb-1] back to itself: the stack holds at most
+    # nb-1 entries, so index nb-1 is never live.
+    idx = torch.where(freed, alloc["n_free"] + rank, nb - 1).long()
+    vals = torch.where(freed, safe, alloc["free"][nb - 1].long())
+    free = alloc["free"].clone()
+    free[idx] = _i32(vals)
+    table = alloc["table"].clone()
+    table[slot] = -1
+    return {
+        "free": free,
+        "n_free": alloc["n_free"] + _i32(freed.sum()),
+        "ref": ref,
+        "table": table,
+    }
+
+
+def tick_alloc(alloc, pos, mask, block_size: int):
+    """In-tick allocation: every row in ``mask`` whose position lies in an
+    unallocated logical block pops one block off the free stack, on the
+    device, with no host round trip."""
+    nb = alloc["free"].shape[0]
+    mb = alloc["table"].shape[1]
+    b = pos.shape[0]
+    lp = torch.clamp(pos, 0, mb * block_size - 1).long()
+    blk = lp // block_size
+    rows = torch.arange(b, device=pos.device)
+    cur = alloc["table"][rows, blk]
+    need = mask.to(torch.bool) & (cur < 0)
+    rank = torch.cumsum(_i32(need), 0) - 1
+    ids = alloc["free"][torch.clamp(alloc["n_free"] - 1 - rank, 0,
+                                    nb - 1).long()]
+    table = alloc["table"].clone()
+    table[rows, blk] = torch.where(need, ids, cur)
+    return {
+        "free": alloc["free"],
+        "n_free": alloc["n_free"] - _i32(need.sum()),
+        "ref": alloc["ref"].index_add(0, torch.where(need, ids, 0).long(),
+                                      _i32(need)),
+        "table": table,
+    }
+
+
+def write_prompt_blocks(pool, k, v, row, start_blk: int, nblk: int,
+                        block_size: int):
+    """Scatter one slot's prompt K/V into a layer pool as whole blocks, IN
+    PLACE.
+
+    ``k``/``v``: (S, KV, hd), padded here to a block multiple. Blocks
+    ``start_blk <= j < nblk`` land at ``row[j]``; the rest (a shared prefix
+    the slot must not overwrite, and the pad tail) go to the garbage block.
+    """
+    bs = block_size
+    s = k.shape[0]
+    pad = (-s) % bs
+    nblocks = (s + pad) // bs
+    j = torch.arange(nblocks, device=row.device)
+    write = (j >= start_blk) & (j < nblk)
+    phys = torch.where(write, torch.clamp(row[:nblocks], min=0), 0).long()
+    for name, x in (("k", k), ("v", v)):
+        if pad:
+            x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        tgt = pool[name]
+        tgt[phys] = x.reshape(nblocks, bs, *x.shape[1:]).to(tgt.dtype)
+    return pool

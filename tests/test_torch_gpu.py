@@ -1,0 +1,114 @@
+"""Card-only tests of the port: each CUDA kernel against its plain PyTorch
+version at small and ragged shapes, and the serving engine on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA card. The file
+imports no JAX, so it also runs where only PyTorch is installed (the
+suite's conftest imports JAX, hence ``--noconftest``)::
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.paged_attention.paged_attention import \
+    paged_attention
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul
+from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.models import transformer as tfm
+from repro_torch.serving.engine import (SamplingParams, ServingEngine,
+                                        make_uniform_quant_state)
+
+pytestmark = pytest.mark.gpu
+
+# fp32 reassociation over K terms: 1e-4 of |x| @ |w| (see chip_smoke.py)
+K1_RTOL = 1e-4
+# bf16 probabilities in the plain version vs fp32 in the kernel: 2^-8 max|v|
+K2_TOL_FACTOR = 2.0 ** -8
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    # the plain versions are the references: keep fp32 products in fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("mkn", [(1, 64, 96), (8, 2048, 256), (9, 100, 37),
+                                 (64, 640, 130), (130, 64, 65)])
+def test_quant_matmul_kernel_matches_plain(cuda, mkn):
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(sum(mkn))
+    x = torch.randn((m, k), generator=g, device=cuda)
+    codes = torch.randint(-128, 128, (k, n), generator=g, device=cuda,
+                          dtype=torch.int8)
+    scale = torch.rand((n,), generator=g, device=cuda) * 0.01 + 1e-3
+    bias = (torch.rand((n,), generator=g, device=cuda) - 0.5) * 1e-3
+    before = quant_matmul.launches
+    got = quant_matmul(x, codes, scale, bias, x.sum(dim=1))
+    want = quant_matmul_ref(x, codes, scale, bias)
+    mag = x.abs() @ (codes.float() * scale + bias).abs()
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    assert bool(((got - want).abs() <= K1_RTOL * mag + 1e-6).all())
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("softcap", [None, 5.0])
+def test_paged_attention_kernel_matches_plain(cuda, hd, pool_dtype, softcap):
+    b, kvh, grp, bs, mb = 5, 2, 4, 8, 6
+    nb = b * mb + 1
+    rng = np.random.default_rng(hd)
+    pos = rng.integers(0, mb * bs, b).astype(np.int32)
+    pos[0], pos[1] = mb * bs - 1, 0
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    table = np.full((b, mb), -1, np.int32)
+    for i, p in enumerate(pos):
+        table[i, :p // bs + 1] = perm[i * mb:i * mb + p // bs + 1]
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q = torch.randn((b, kvh, grp, hd), generator=g, device=cuda).to(
+        torch.bfloat16)
+    kp = torch.randn((nb, bs, kvh, hd), generator=g, device=cuda).to(
+        pool_dtype)
+    vp = torch.randn((nb, bs, kvh, hd), generator=g, device=cuda).to(
+        pool_dtype)
+    args = (q, kp, vp, torch.from_numpy(table).to(cuda),
+            torch.from_numpy(pos).to(cuda))
+    got = paged_attention(*args, softcap=softcap)
+    want = paged_attention_ref(*args, softcap=softcap)
+    torch.cuda.synchronize()
+    tol = K2_TOL_FACTOR * float(vp.abs().max()) + 1e-5
+    assert float((got - want).abs().max()) <= tol
+
+
+def test_engine_on_card_runs_through_the_kernels(cuda):
+    cfg = get_smoke_config("tinyllama-1.1b")
+    params = _to(tfm.init_params(cfg, 0, device="cpu"), cuda)
+    eng = ServingEngine(cfg, params, slots=3, max_seq=64,
+                        quant_state=make_uniform_quant_state(cfg, params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (3, 9, 20, 7)]
+    quant_matmul.launches = paged_attention.launches = 0
+    res = eng.generate(prompts, SamplingParams(max_new=5))
+    st = eng.stats
+    assert all(r.finish_reason == "length" and len(r.tokens) == 5
+               and all(0 <= t < cfg.vocab_size for t in r.tokens)
+               for r in res)
+    assert st["tick_syncs"] == st["decode_ticks"]
+    assert quant_matmul.launches == (7 * cfg.n_layers + 1) * (
+        st["prefill_forwards"] + st["decode_ticks"])
+    assert paged_attention.launches == cfg.n_layers * st["decode_ticks"]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

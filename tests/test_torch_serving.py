@@ -1,0 +1,301 @@
+"""The port's serving slice against repro, and the port's ground rules.
+
+On smoke tinyllama-1.1b, with repro's params and uniform int8 state handed
+over through numpy: prefill and decode logits match repro's, and the
+greedy streams of ``ServingEngine`` on the quickstart workload
+(``examples/quickstart.py:serve_demo``) are token-for-token repro's. The
+rules: the package and ``chip_smoke.py`` import neither jax nor repro,
+entry points refuse to run on the CPU unless asked, and options this slice
+does not port raise ``NotImplementedError``.
+"""
+
+import ast
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as j_smoke
+from repro.core.sites import QuantContext as JQuantContext
+from repro.models import transformer as jtfm
+from repro.quant.spec import specs_from_state as j_specs_from_state
+from repro.serving import SamplingParams as JSamplingParams
+from repro.serving import ServingEngine as JServingEngine
+from repro.serving import kv_pool as jkv
+from repro.serving import make_uniform_quant_state as j_uniform_state
+from repro.serving.engine import export_int_model as j_export_int_model
+from repro_torch import bridge
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.sites import QuantContext
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as ttfm
+from repro_torch.quant.spec import specs_from_state
+from repro_torch.serving import kv_pool
+from repro_torch.serving.engine import (SamplingParams, ServingEngine,
+                                        export_int_model,
+                                        make_uniform_quant_state)
+
+ROOT = Path(__file__).resolve().parent.parent
+# examples/quickstart.py:serve_demo under repro: slots=2, max_seq=64,
+# prompts of 5 and 8 tokens from default_rng(1), greedy, max_new=6
+QUICKSTART_TOKENS = [[188, 195, 80, 55, 188, 117], [47, 44, 4, 117, 253, 44]]
+# Logit tolerance: both packages keep activations in bf16 between layers
+# and the serve matmuls return bf16, so a fp32 sum taken in another order
+# (torch's CPU GEMM vs XLA's dot) can flip a bf16 rounding (2^-8 relative)
+# that two layers carry to the logits. 2% of the largest |logit| is a few
+# bf16 ulps there; a wrong cast point or mask shows up far above it.
+LOGIT_RTOL = 2e-2
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    cfg = j_smoke("tinyllama-1.1b")
+    params = jtfm.init_params(cfg, jax.random.PRNGKey(0))
+    qs = j_uniform_state(cfg, params)
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, params),
+                                       device="cpu")
+    tqs = bridge.quant_state_from_numpy(
+        jax.tree.map(np.asarray, qs["gates"]),
+        jax.tree.map(np.asarray, qs["betas"]), qs["signed"],
+        dataclasses.asdict(qs["qcfg"]), device="cpu")
+    return cfg, params, qs, get_smoke_config("tinyllama-1.1b"), tparams, tqs
+
+
+def _quickstart_prompts(vocab):
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, vocab, (n,)) for n in (5, 8)]
+
+
+@pytest.fixture(scope="module")
+def repro_quickstart(smoke):
+    """repro's ServingEngine on the quickstart workload, run once."""
+    cfg, params, qs, *_ = smoke
+    eng = JServingEngine(cfg, params, slots=2, max_seq=64, quant_state=qs)
+    res = eng.generate(_quickstart_prompts(cfg.vocab_size),
+                       JSamplingParams(max_new=6))
+    return [r.tokens for r in res], eng.stats
+
+
+def test_engine_greedy_tokens_equal_repro(smoke, repro_quickstart):
+    _, _, _, tcfg, tparams, tqs = smoke
+    want, jstats = repro_quickstart
+    assert want == QUICKSTART_TOKENS
+    eng = ServingEngine(tcfg, tparams, slots=2, max_seq=64, quant_state=tqs,
+                        device="cpu")
+    res = eng.generate(_quickstart_prompts(tcfg.vocab_size),
+                       SamplingParams(max_new=6))
+    assert [r.tokens for r in res] == want
+    assert all(r.finish_reason == "length" for r in res)
+    st = eng.stats
+    assert st["tick_syncs"] == st["decode_ticks"] == jstats["decode_ticks"]
+    assert st["admit_syncs"] == 1          # one wave, one batched transfer
+    assert st["prefill_forwards"] == jstats["prefill_forwards"]
+    assert st["generated_tokens"] == jstats["generated_tokens"]
+    # every block went back to the pool
+    assert int(eng.alloc["n_free"]) == eng.num_blocks - 1
+    assert bool((eng.alloc["table"] == -1).all())
+
+
+@pytest.mark.parametrize("mode", ["serve", "off"])
+def test_prefill_and_decode_logits_match_repro(smoke, mode):
+    """Serve mode runs the int8 export through the fused dequant GEMM; off
+    mode (an engine without a quant state) the float weights."""
+    cfg, params, qs, tcfg, tparams, tqs = smoke
+    slots, nb, bs, mb = 2, 17, 8, 8
+    if mode == "serve":
+        jqw, _ = j_export_int_model(params, cfg, qs)
+        jqc = JQuantContext(mode="serve", cfg=qs["qcfg"], qweights=jqw,
+                            specs=j_specs_from_state(
+                                qs["gates"], qs["betas"], qs["signed"]))
+        tqw, _ = export_int_model(tparams, tcfg, tqs, device="cpu")
+        tqc = QuantContext(mode="serve", cfg=tqs["qcfg"], qweights=tqw,
+                           specs=specs_from_state(
+                               tqs["gates"], tqs["betas"], tqs["signed"]))
+    else:
+        jqc, tqc = JQuantContext(mode="off"), QuantContext(mode="off")
+    jcache = jtfm.init_paged_cache(cfg, slots, nb, bs)
+    jalloc = jkv.init_alloc(nb, slots, mb)
+    tcache = ttfm.init_paged_cache(tcfg, slots, nb, bs, device="cpu")
+    talloc = kv_pool.init_alloc(nb, slots, mb, device="cpu")
+    rng = np.random.default_rng(4)
+    v = cfg.vocab_size      # the padded tail is -1e30 in both
+
+    def close(j, t):
+        j = np.asarray(jnp.asarray(j, jnp.float32))
+        t = t.to(torch.float32).numpy()
+        assert j.shape == t.shape
+        assert np.abs(j - t).max() <= LOGIT_RTOL * np.abs(j).max()
+
+    for slot, plen in ((0, 11), (1, 5)):
+        toks = np.zeros((1, 16 if plen > 8 else 8), np.int32)
+        toks[0, :plen] = rng.integers(0, cfg.vocab_size, plen)
+        nblk = -(-plen // bs)
+        jalloc = jkv.alloc_range(jalloc, slot, 0, nblk)
+        talloc = kv_pool.alloc_range(talloc, slot, 0, nblk)
+        jl, jcache = jtfm.prefill_slot(jqc, params, jnp.asarray(toks), plen,
+                                       jcache, slot, cfg,
+                                       block_table=jalloc["table"])
+        tl, tcache = ttfm.prefill_slot(tqc, tparams,
+                                       torch.from_numpy(toks).long(), plen,
+                                       tcache, slot, tcfg,
+                                       block_table=talloc["table"])
+        close(jl[:, :plen, :v], tl[:, :plen, :v])
+    adv = np.asarray([True, True])
+    for step in range(2):
+        tok = rng.integers(0, cfg.vocab_size, slots)
+        jalloc = jkv.tick_alloc(jalloc, jcache["pos"], jnp.asarray(adv), bs)
+        talloc = kv_pool.tick_alloc(talloc, tcache["pos"],
+                                    torch.from_numpy(adv), bs)
+        jl, jcache = jtfm.decode_step(jqc, params, jcache,
+                                      jnp.asarray(tok, jnp.int32), cfg,
+                                      advance=jnp.asarray(adv),
+                                      block_table=jalloc["table"])
+        tl, tcache = ttfm.decode_step(tqc, tparams, tcache,
+                                      torch.from_numpy(tok), tcfg,
+                                      advance=torch.from_numpy(adv),
+                                      block_table=talloc["table"])
+        close(jl[..., :v], tl[..., :v])
+        np.testing.assert_array_equal(np.asarray(jcache["pos"]),
+                                      tcache["pos"].numpy())
+        np.testing.assert_array_equal(np.asarray(jalloc["table"]),
+                                      talloc["table"].numpy())
+    # the pools the two packages wrote hold the same K/V (bf16)
+    for name in ("k", "v"):
+        close(jcache["layers"][0][name][:, 1:], tcache["layers"][0][name][:, 1:])
+
+
+def test_allocator_and_prompt_writes_match_repro():
+    nb, slots, mb, bs = 12, 3, 4, 4
+    ja, ta = jkv.init_alloc(nb, slots, mb), kv_pool.init_alloc(
+        nb, slots, mb, device="cpu")
+
+    def same(j, t):
+        for key in ("free", "n_free", "ref", "table"):
+            np.testing.assert_array_equal(np.asarray(j[key]), t[key].numpy())
+
+    same(ja, ta)
+    for slot, n in ((0, 2), (2, 3)):
+        ja, ta = jkv.alloc_range(ja, slot, 0, n), kv_pool.alloc_range(
+            ta, slot, 0, n)
+        same(ja, ta)
+    pos = np.asarray([8, 3, 12], np.int32)
+    mask = np.asarray([True, True, True])
+    ja = jkv.tick_alloc(ja, jnp.asarray(pos), jnp.asarray(mask), bs)
+    ta = kv_pool.tick_alloc(ta, torch.from_numpy(pos), torch.from_numpy(mask),
+                            bs)
+    same(ja, ta)
+    for slot in (0, 2):
+        ja, ta = jkv.free_slot(ja, slot), kv_pool.free_slot(ta, slot)
+        same(ja, ta)
+
+    rng = np.random.default_rng(9)
+    kvh, hd, s = 2, 8, 11
+    pool = rng.normal(size=(nb, bs, kvh, hd)).astype(np.float32)
+    k = rng.normal(size=(s, kvh, hd)).astype(np.float32)
+    v = rng.normal(size=(s, kvh, hd)).astype(np.float32)
+    row = np.asarray([5, 7, 2, -1], np.int32)
+    for start in (0, 1):
+        jp = jkv.write_prompt_blocks(
+            {"k": jnp.asarray(pool), "v": jnp.asarray(pool)},
+            jnp.asarray(k), jnp.asarray(v), jnp.asarray(row), start, 3, bs)
+        tp = kv_pool.write_prompt_blocks(
+            {"k": torch.from_numpy(pool.copy()),
+             "v": torch.from_numpy(pool.copy())},
+            torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(row),
+            start, 3, bs)
+        for name in ("k", "v"):   # block 0 is garbage in both
+            np.testing.assert_array_equal(np.asarray(jp[name])[1:],
+                                          tp[name].numpy()[1:])
+
+
+# ---------------------------------------------------------------------------
+# Rules
+# ---------------------------------------------------------------------------
+
+
+def test_package_imports_neither_jax_nor_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):"
+        "\n    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) >= 20      # every submodule was imported
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add((node.module or "").split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", None) == "__import__":
+            names.add(node.args[0].value.split(".")[0])
+    assert "repro_torch" in names and "torch" in names
+    assert not names & {"jax", "jaxlib", "repro"}, names
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu(smoke):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    _, _, _, tcfg, tparams, tqs = smoke
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttfm.init_params(tcfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_uniform_quant_state(tcfg, tparams)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_int_model(tparams, tcfg, tqs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(tcfg, tparams, slots=2, max_seq=32)
+    with pytest.raises(ValueError, match="cuda' or 'cpu"):
+        resolve_device("meta")
+    # the port's own init on the CPU, served: params in repro's layout
+    p = ttfm.init_params(tcfg, 0, device="cpu")
+    assert jax.tree.structure(jax.tree.map(np.asarray, p)) \
+        == jax.tree.structure(jax.tree.map(np.asarray, tparams))
+    eng = ServingEngine(tcfg, p, slots=2, max_seq=32, device="cpu",
+                        quant_state=make_uniform_quant_state(tcfg, p,
+                                                             device="cpu"))
+    (r,) = eng.generate([np.arange(3)], SamplingParams(max_new=3))
+    assert len(r.tokens) == 3 and all(0 <= t < tcfg.vocab_size
+                                      for t in r.tokens)
+
+
+@pytest.mark.parametrize("kwargs, item", [
+    ({"kv_layout": "ring"}, "item 10"),
+    ({"kv_dtype": "int8"}, "item 8"),
+    ({"kv_dtype": "int4"}, "item 8"),
+    ({"act_bits": 8}, "item 9"),
+    ({"prefill_chunk_tokens": 16}, "item 12"),
+    ({"attention_window": 16}, "item 13"),
+    ({"num_blocks": 5}, "item 11"),
+])
+def test_unported_engine_options_raise(smoke, kwargs, item):
+    _, _, _, tcfg, tparams, _ = smoke
+    with pytest.raises(NotImplementedError, match=item):
+        ServingEngine(tcfg, tparams, slots=2, max_seq=32, device="cpu",
+                      **kwargs)
+
+
+def test_unported_sampling_and_archs_raise():
+    with pytest.raises(NotImplementedError, match="item 10"):
+        SamplingParams(temperature=0.7)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ttfm.init_params(get_smoke_config("gemma2-2b"), 0, device="cpu")
