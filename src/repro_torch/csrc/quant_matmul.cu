@@ -1,47 +1,80 @@
-// K1 quant_matmul: fused int8-dequant GEMM for Hopper (sm_90a).
+// K1 quant_matmul and K4 quant_matmul_packed: fused dequant GEMMs for
+// Hopper (sm_90a).
 //
 //     out[m, n] = scale[n] * (x @ codes)[m, n] + bias[n] * rowsum[m]
 //
 // which equals x @ (codes * scale + bias) in exact arithmetic: the weight is
-// never widened to float in device memory.
+// never widened to float in device memory. K1 reads int8 codes (K, N); K4
+// reads 2- or 4-bit codes packed along K into uint8 (ceil(K/per), N), byte i
+// of a column holding codes i*per + j in bits [j*b, (j+1)*b), biased by
+// 2^(b-1) (src/repro_torch/quant/pack.py).
 //
-// Replaces: src/repro/kernels/quant_matmul/quant_matmul.py:quant_matmul_pallas
-// (kernel body _kernel). The TPU kernel walks a sequential K grid axis and
-// accumulates into the revisited fp32 output tile, applying the affine
-// epilogue on the last K step. Here one thread block owns one BM x BN output
-// tile and loops over K itself; the epilogue runs in registers before the
-// only store.
+// Replaces: src/repro/kernels/quant_matmul/quant_matmul.py:
+// quant_matmul_pallas (kernel body _kernel) and quant_matmul_packed_pallas
+// (_packed_kernel, unpacking through layout.py:unpack_tile). The TPU kernels
+// walk a sequential K grid axis and accumulate into the revisited fp32
+// output tile, applying the affine epilogue on the last K step. Here one
+// thread block owns one BM x BN output tile and loops over K itself; the
+// epilogue runs in registers before the only store.
 //
-// What bounds it on an H100: at decode (M = serving slots, 8) the work is a
-// stream of int8 weight bytes with 2 FLOPs per byte per row, far below the
-// card's ~20 FLOP/byte fp32 ridge: it is bound by the bytes of `codes`. At
-// prefill (M = the padded prompt, up to 512) it is bound by fp32 FMAs.
+// What bounds them on an H100: at decode (M = serving slots, 8) the work is
+// a stream of weight-code bytes with 2 FLOPs per code per row, far below the
+// card's ~20 FLOP/byte fp32 ridge: they are bound by the bytes of `codes`
+// (K*N, K*N/2 or K*N/4 of them). At prefill (M = the padded prompt, up to
+// 512) they are bound by fp32 FMAs.
 // What the design does about it:
-//   * codes are read as int8 (a quarter of fp32's bytes) and widened to
-//     float only in shared memory, once per tile;
+//   * codes are read as bytes (a quarter of fp32's, or 1/8 and 1/16 packed)
+//     and widened to float only in shared memory, once per tile. The packed
+//     loader writes the unpacked, centered code
+//     ((byte >> (j*b)) & mask) - 2^(b-1) into the same fp32 tile K1 fills,
+//     and both run one tile body (gemm_tile) with the same K order and the
+//     same explicitly rounded epilogue, so K4 on pack(c) equals K1 on c bit
+//     for bit;
 //   * x and codes tiles are staged in shared memory and reused by every
 //     thread of the block; each thread keeps a TM x TN fp32 register tile;
 //   * two tile shapes: M <= 8 takes an 8-row tile (one output per thread,
 //     no idle rows at decode), larger M takes 64 x 64 tiles with 4 x 4
-//     register tiles. Split-K, cp.async/TMA pipelining and tensor cores are
-//     left for a later change; at M = 8 a block still reads its codes tile
-//     with plain loads and few bytes in flight.
+//     register tiles. Both K tiles (128 and 16) are whole packed rows at 2
+//     and 4 bits. Split-K, wider loads, cp.async/TMA pipelining and tensor
+//     cores are left for a later change; at M = 8 a block still reads its
+//     codes tile with plain byte loads and few bytes in flight, and K4
+//     reads each packed byte once per code it holds (the repeats hit L1).
 //   * ragged M/N/K edges are zero-filled on load (a ragged K tail would
-//     otherwise add garbage to real sums) and masked on store.
+//     otherwise add garbage to real sums; for K4 this also zeroes the x
+//     columns that meet pack padding, and no packed row >= ceil(K/per) is
+//     read) and masked on store.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-template <int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-quant_matmul_kernel(const float* __restrict__ x,
-                    const int8_t* __restrict__ codes,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ rowsum,
-                    float* __restrict__ out, int M, int N, int K) {
+// Code (gk, gn) as a float: an int8 code (BITS = 8), or the centered
+// BITS-bit field of a packed byte (BITS = 2, 4).
+template <int BITS>
+__device__ __forceinline__ float load_code(const void* codes, int gk, int gn,
+                                           int N) {
+  if constexpr (BITS == 8) {
+    return static_cast<float>(
+        static_cast<const int8_t*>(codes)[(size_t)gk * N + gn]);
+  } else {
+    constexpr int PER = 8 / BITS;
+    const unsigned byte =
+        static_cast<const uint8_t*>(codes)[(size_t)(gk / PER) * N + gn];
+    const int field = (byte >> ((gk % PER) * BITS)) & ((1 << BITS) - 1);
+    return static_cast<float>(field - (1 << (BITS - 1)));
+  }
+}
+
+// One BM x BN output tile of out = scale * (x @ codes) + bias * rowsum.
+template <int BITS, int BM, int BN, int BK, int TM, int TN>
+__device__ __forceinline__ void gemm_tile(const float* __restrict__ x,
+                                          const void* __restrict__ codes,
+                                          const float* __restrict__ scale,
+                                          const float* __restrict__ bias,
+                                          const float* __restrict__ rowsum,
+                                          float* __restrict__ out, int M,
+                                          int N, int K) {
   constexpr int RT = BM / TM;  // thread rows: thread (ty, tx) owns rows
   constexpr int CT = BN / TN;  // ty + i*RT and columns tx + j*CT
   constexpr int NT = RT * CT;
@@ -69,9 +102,7 @@ quant_matmul_kernel(const float* __restrict__ x,
     for (int i = tid; i < BK * BN; i += NT) {
       const int r = i / BN, c = i % BN;
       const int gk = k0 + r, gn = n0 + c;
-      cs[r][c] = (gk < K && gn < N)
-                     ? static_cast<float>(codes[(size_t)gk * N + gn])
-                     : 0.f;
+      cs[r][c] = (gk < K && gn < N) ? load_code<BITS>(codes, gk, gn, N) : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -97,19 +128,75 @@ quant_matmul_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + j * CT;
-      if (n < N) out[(size_t)m * N + n] = acc[i][j] * scale[n] + rs * bias[n];
+      // rounded explicitly, so no instantiation contracts it differently
+      if (n < N)
+        out[(size_t)m * N + n] = fmaf(acc[i][j], scale[n],
+                                      __fmul_rn(rs, bias[n]));
     }
   }
 }
 
 template <int BM, int BN, int BK, int TM, int TN>
-void launch(const float* x, const int8_t* codes, const float* scale,
-            const float* bias, const float* rowsum, float* out, int M, int N,
-            int K, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  const dim3 block((BM / TM) * (BN / TN));
-  quant_matmul_kernel<BM, BN, BK, TM, TN>
-      <<<grid, block, 0, stream>>>(x, codes, scale, bias, rowsum, out, M, N, K);
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+quant_matmul_kernel(const float* __restrict__ x,
+                    const int8_t* __restrict__ codes,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ rowsum,
+                    float* __restrict__ out, int M, int N, int K) {
+  gemm_tile<8, BM, BN, BK, TM, TN>(x, codes, scale, bias, rowsum, out, M, N,
+                                   K);
+}
+
+template <int BITS, int BM, int BN, int BK, int TM, int TN>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+quant_matmul_packed_kernel(const float* __restrict__ x,
+                           const uint8_t* __restrict__ packed,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ rowsum,
+                           float* __restrict__ out, int M, int N, int K) {
+  static_assert(BK % (8 / BITS) == 0, "K tile must be whole packed rows");
+  gemm_tile<BITS, BM, BN, BK, TM, TN>(x, packed, scale, bias, rowsum, out, M,
+                                      N, K);
+}
+
+// The tile shapes of both kernels: an 8-row tile at decode, 64 x 64 above.
+constexpr int kSmallM = 8;
+
+dim3 grid_of(int M, int N, int bm, int bn) {
+  return dim3((N + bn - 1) / bn, (M + bm - 1) / bm);
+}
+
+void launch_i8(const float* x, const int8_t* codes, const float* scale,
+               const float* bias, const float* rowsum, float* out, int M,
+               int N, int K, cudaStream_t stream) {
+  if (M <= kSmallM) {
+    const dim3 grid = grid_of(M, N, 8, 32);
+    quant_matmul_kernel<8, 32, 128, 1, 1><<<grid, 8 * 32, 0, stream>>>(
+        x, codes, scale, bias, rowsum, out, M, N, K);
+  } else {
+    const dim3 grid = grid_of(M, N, 64, 64);
+    quant_matmul_kernel<64, 64, 16, 4, 4><<<grid, 16 * 16, 0, stream>>>(
+        x, codes, scale, bias, rowsum, out, M, N, K);
+  }
+}
+
+template <int BITS>
+void launch_packed(const float* x, const uint8_t* packed, const float* scale,
+                   const float* bias, const float* rowsum, float* out, int M,
+                   int N, int K, cudaStream_t stream) {
+  if (M <= kSmallM) {
+    const dim3 grid = grid_of(M, N, 8, 32);
+    quant_matmul_packed_kernel<BITS, 8, 32, 128, 1, 1>
+        <<<grid, 8 * 32, 0, stream>>>(
+            x, packed, scale, bias, rowsum, out, M, N, K);
+  } else {
+    const dim3 grid = grid_of(M, N, 64, 64);
+    quant_matmul_packed_kernel<BITS, 64, 64, 16, 4, 4>
+        <<<grid, 16 * 16, 0, stream>>>(
+            x, packed, scale, bias, rowsum, out, M, N, K);
+  }
 }
 
 }  // namespace
@@ -121,11 +208,25 @@ extern "C" int quant_matmul_f32_i8(const float* x, const int8_t* codes,
                                    const float* scale, const float* bias,
                                    const float* rowsum, float* out, int M,
                                    int N, int K, void* stream) {
+  launch_i8(x, codes, scale, bias, rowsum, out, M, N, K,
+            static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As quant_matmul_f32_i8, with codes (ceil(K/per), N) uint8 packing
+// bits in {2, 4} per code (per = 8 / bits) and K the logical fan-in.
+// Returns cudaErrorInvalidValue for other bits, else cudaGetLastError().
+extern "C" int quant_matmul_f32_packed(const float* x, const uint8_t* packed,
+                                       const float* scale, const float* bias,
+                                       const float* rowsum, float* out, int M,
+                                       int N, int K, int bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 8) {
-    launch<8, 32, 128, 1, 1>(x, codes, scale, bias, rowsum, out, M, N, K, s);
+  if (bits == 2) {
+    launch_packed<2>(x, packed, scale, bias, rowsum, out, M, N, K, s);
+  } else if (bits == 4) {
+    launch_packed<4>(x, packed, scale, bias, rowsum, out, M, N, K, s);
   } else {
-    launch<64, 64, 16, 4, 4>(x, codes, scale, bias, rowsum, out, M, N, K, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,1 +1,2 @@
-"""K2a: paged single-token decode attention (CUDA kernel + plain version)."""
+"""K2a (float pool) and K2b (quantized pool) paged single-token decode
+attention: CUDA kernels and their plain version."""

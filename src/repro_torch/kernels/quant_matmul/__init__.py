@@ -1,1 +1,2 @@
-"""K1: int8 fused dequant GEMM (CUDA kernel + plain version)."""
+"""K1 (int8) and K4 (packed 2/4-bit) fused dequant GEMMs: CUDA kernels and
+their plain versions."""

@@ -1,8 +1,10 @@
-"""Plain PyTorch version of the fused dequant GEMM (int8 codes)."""
+"""Plain PyTorch versions of the fused dequant GEMM (int8 and packed)."""
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.quant.pack import unpack_codes
 
 
 def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
@@ -16,3 +18,12 @@ def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
     """
     w = codes.to(torch.float32) * scale[None, :] + bias[None, :]
     return x.to(torch.float32) @ w
+
+
+def quant_matmul_packed_ref(x: torch.Tensor, packed: torch.Tensor,
+                            scale: torch.Tensor, bias: torch.Tensor, *,
+                            bits: int, k: int) -> torch.Tensor:
+    """Packed version: ``unpack_codes`` then ``quant_matmul_ref``, so the
+    packed path is bit for bit the int8 path on the unpacked codes (mirrors
+    ``repro/kernels/quant_matmul/ref.py:quant_matmul_packed_ref``)."""
+    return quant_matmul_ref(x, unpack_codes(packed, bits, k), scale, bias)

@@ -7,8 +7,9 @@ Counterpart of ``repro/models/attention.py`` for global layers:
     outside any Pallas kernel, so it stays plain PyTorch here, with the same
     cast points (no fused library attention).
   * ``attention_decode_paged`` -- one-token decode through a paged KV pool:
-    the new K/V is written into the pool, then ``paged_attention_op`` (the
-    K2a CUDA kernel on the card) attends through the block table.
+    the new K/V is written into the pool (quantized at the write site for
+    an int8/int4 pool), then ``paged_attention_op`` (the K2a or K2b CUDA
+    kernel on the card) attends through the block table.
 
 Sliding-window (local) layers, windows and sinks come with ROADMAP queue 1
 items 13-14.
@@ -21,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sites import QuantContext
 from repro_torch.kernels.paged_attention.ops import paged_attention_op
+from repro_torch.quant import kv as kv_codec
 
 from .layers import COMPUTE_DTYPE, apply_rope, qmatmul, softcap
 
@@ -93,8 +95,10 @@ def attention_decode_paged(qc: QuantContext, p, x, pool: dict, block_table,
     """One-token decode through a paged KV pool.
 
     ``pool``: {"k", "v"} of (num_blocks, bs, KV, hd), one layer's physical
-    block pool; ``block_table``: (B, max_blocks) int32 (-1 = unallocated);
-    ``pos``: (B,) int32. The new K/V lands at physical block
+    block pool, or codes plus ``"k_scale"``/``"v_scale"`` for a quantized
+    one (``kv_pool.init_pool``), whose new K/V is quantized here;
+    ``block_table``: (B, max_blocks) int32 (-1 = unallocated); ``pos``:
+    (B,) int32. The new K/V lands at physical block
     ``table[b, pos // bs]`` offset ``pos % bs``; rows outside
     ``write_mask`` (and rows whose block is unallocated) write to the
     reserved garbage block 0. Unlike ``repro``, which returns a new pool,
@@ -115,13 +119,24 @@ def attention_decode_paged(qc: QuantContext, p, x, pool: dict, block_table,
         ok = ok & write_mask.to(torch.bool)
     tgt = torch.where(ok, phys, 0).to(torch.int64)
     off = lp % bs
-    pool["k"].index_put_((tgt, off), k[:, 0].to(pool["k"].dtype))
-    pool["v"].index_put_((tgt, off), v[:, 0].to(pool["v"].dtype))
+    spec = kv_codec.spec_from_cache(pool, cfg.head_dim)
+    if spec is not None:
+        # write-site quantization: codes and group scales land together
+        kc, ksc = kv_codec.quantize_kv(k[:, 0], spec)
+        vc, vsc = kv_codec.quantize_kv(v[:, 0], spec)
+        new = {"k": kc, "v": vc, "k_scale": ksc, "v_scale": vsc}
+        scales = {"k_scale": pool["k_scale"], "v_scale": pool["v_scale"]}
+    else:
+        new = {"k": k[:, 0], "v": v[:, 0]}
+        scales = {}
+    for name, x in new.items():
+        pool[name].index_put_((tgt, off), x.to(pool[name].dtype))
 
     groups = cfg.n_heads // cfg.n_kv_heads
     qg = q[:, 0].reshape(b, cfg.n_kv_heads, groups, cfg.head_dim)
     out = paged_attention_op(qg.to(COMPUTE_DTYPE), pool["k"], pool["v"],
-                             block_table, pos, softcap=cfg.attn_softcap)
+                             block_table, pos, softcap=cfg.attn_softcap,
+                             **scales)
     out = out.to(COMPUTE_DTYPE).reshape(b, 1, cfg.n_heads * cfg.head_dim)
     y = qmatmul(qc, "attn_o", out, p["wo"])
     return qc.act("attn_o", y), pool

@@ -285,16 +285,18 @@ def prefill_slot(qc: QuantContext, params, tokens, plen: int, cache, slot: int,
 
 def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
                      block_size: int, *, kv_dtype=torch.bfloat16,
-                     device=None):
+                     kv_spec=None, device=None):
     """Decode cache with paged attention layers: per pattern entry a pool
     ``(R, num_blocks, bs, KV, hd)`` addressed through the engine's block
-    table, plus the per-row ``pos`` vector."""
+    table, plus the per-row ``pos`` vector. ``kv_spec`` (a
+    ``quant.kv.KVQuantSpec``) makes the pools quantized: codes plus fp16
+    group scales, each stacked the same way."""
     check_supported(cfg)
     dev = resolve_device(device)
     layers = []
     for _ in cfg.block_pattern:
         one = kv_pool.init_pool(cfg, num_blocks, block_size, dtype=kv_dtype,
-                                device=dev)
+                                spec=kv_spec, device=dev)
         layers.append({name: torch.stack([t] * cfg.pattern_repeats)
                        for name, t in one.items()})
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),

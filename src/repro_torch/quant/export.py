@@ -1,4 +1,4 @@
-"""Model-agnostic quantized-weight export (int8 storage class).
+"""Model-agnostic quantized-weight export (2/4/8-bit storage classes).
 
 Counterpart of ``repro/quant/export.py:export_sites``. ``repro`` captures
 each site's weight with an export-mode forward; the port takes the same
@@ -49,9 +49,11 @@ def _expand_group(a, w, stacked: bool):
 
 
 def export_sites(weights: dict, sites: dict, gates: dict, betas: dict,
-                 signed: dict, *, warn: bool = True):
+                 signed: dict, *, pack: bool = True, warn: bool = True):
     """Freeze every eligible site of ``weights`` ("<site>.w" -> tensor);
-    ledger all of them. Returns ``(qweights, ledger)``."""
+    ledger all of them. Codes are stored at the site's 2/4/8-bit storage
+    class, packed sub-byte when ``pack``; ``pack=False`` keeps the unpacked
+    int8 oracle layout. Returns ``(qweights, ledger)``."""
     qweights: dict[str, QuantizedTensor] = {}
     ledger = ExportLedger(sites=dict(sites))
     for key, w in weights.items():
@@ -88,7 +90,7 @@ def export_sites(weights: dict, sites: dict, gates: dict, betas: dict,
         qt = QuantizedTensor.from_float(
             w, _expand_group(bits, w, stacked),
             _expand_group(betas[key], w, stacked), bool(signed[key]),
-            storage_bits=storage)
+            storage_bits=storage, pack=pack)
         qweights[key] = qt
         entry.update(served="int", storage_bits=qt.storage_bits,
                      codes_bytes=qt.codes_bytes(), aux_bytes=qt.aux_bytes())

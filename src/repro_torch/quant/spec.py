@@ -1,21 +1,25 @@
 """QuantSpec / QuantizedTensor: the quantization representation that goes
 from controller to kernel.
 
-Counterpart of ``repro/quant/spec.py`` for the int8 storage class.
-``QuantSpec`` is one site's frozen bits/range/sign; ``QuantizedTensor`` is
-one frozen weight: int8 codes ``(..., K, N)`` plus the affine terms, with
-``codes * scale + bias`` on the exact ``core.quantizer.quantize`` grid.
-Packed 2/4-bit storage comes with ROADMAP queue 1 item 7.
+Counterpart of ``repro/quant/spec.py`` for weight storage. ``QuantSpec``
+is one site's frozen bits/range/sign; ``QuantizedTensor`` is one frozen
+weight: int8 codes ``(..., K, N)`` (8-bit class) or 2/4-bit codes packed
+along K into uint8 ``(..., ceil(K/per), N)`` (``pack.py``), plus the affine
+terms, with ``codes * scale + bias`` on the exact ``core.quantizer.quantize``
+grid.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.core.gates import gate_to_bits
 from repro_torch.core.quantizer import quantize_to_int
+
+from .pack import pack_codes, unpack_codes
 
 # Integer storage classes the serving path can carry (bits -> packed words).
 STORAGE_CLASSES = (2, 4, 8)
@@ -69,11 +73,14 @@ def specs_from_state(gates: dict, betas: dict, signed: dict) -> dict:
 
 @dataclasses.dataclass
 class QuantizedTensor:
-    """One exported weight: int8 codes ``(..., K, N)`` + affine terms.
+    """One exported weight: (packed) integer codes + affine terms.
 
-    ``scale``/``bias`` broadcast against the codes (``(..., 1, N)`` for
-    per-channel sites); ``colsum`` is the int32 K-sum of the codes, frozen
-    at export for the integer GEMM of a later slice.
+    ``codes`` is uint8 bit-packed ``(..., ceil(K/per), N)`` for 2/4-bit
+    storage, int8 ``(..., K, N)`` for the 8-bit class (the unpacked oracle
+    layout). ``scale``/``bias`` broadcast against the unpacked codes
+    (``(..., 1, N)`` for per-channel sites); ``k`` is the logical fan-in;
+    ``colsum`` is the int32 K-sum of the unpacked codes, frozen at export
+    for the integer GEMM of a later slice.
     """
 
     codes: torch.Tensor
@@ -83,35 +90,64 @@ class QuantizedTensor:
     k: int
     colsum: torch.Tensor | None = None
 
+    @property
+    def packed(self) -> bool:
+        return self.storage_bits < 8
+
     @classmethod
-    def from_float(cls, w, bits, beta, signed: bool, *,
-                   storage_bits: int) -> "QuantizedTensor":
-        """Freeze ``w`` on the ``bits`` grid into int8 storage."""
-        if storage_bits != 8:
-            raise NotImplementedError(
-                f"packed {storage_bits}-bit storage is ported with ROADMAP "
-                f"queue 1 item 7 (mixed sub-byte weights)")
+    def from_float(cls, w, bits, beta, signed: bool, *, storage_bits: int,
+                   pack: bool = True) -> "QuantizedTensor":
+        """Freeze ``w`` on the ``bits`` grid into ``storage_bits`` storage.
+
+        ``pack=False`` keeps the int8 oracle layout whatever the storage
+        class: the packed path's equivalence reference.
+        """
         codes, scale, bias = quantize_to_int(w, bits, beta, signed)
         colsum = codes.to(torch.int32).sum(dim=-2)
+        k = int(w.shape[-2])
         # elementwise ops keep the strides of a transposed input (the tied
-        # head's embed.T); the kernels read row-major (K, N) codes
-        return cls(codes=codes.to(torch.int8).contiguous(), scale=scale,
-                   bias=bias, storage_bits=8, k=int(w.shape[-2]),
+        # head's embed.T); the kernels read row-major codes
+        codes = codes.to(torch.int8).contiguous()
+        if pack and storage_bits < 8:
+            return cls(codes=pack_codes(codes, storage_bits), scale=scale,
+                       bias=bias, storage_bits=storage_bits, k=k,
+                       colsum=colsum)
+        return cls(codes=codes, scale=scale, bias=bias, storage_bits=8, k=k,
                    colsum=colsum)
 
     def layer(self, r: int) -> "QuantizedTensor":
-        """Layer ``r`` of a scan-stacked export (views, no copy)."""
+        """Layer ``r`` of a scan-stacked export (contiguous views, no
+        copy)."""
         return QuantizedTensor(
             codes=self.codes[r], scale=self.scale[r], bias=self.bias[r],
             storage_bits=self.storage_bits, k=self.k,
             colsum=None if self.colsum is None else self.colsum[r])
 
+    def int8_codes(self) -> torch.Tensor:
+        """Unpacked centered codes ``(..., K, N)`` int8 (oracle layout)."""
+        if not self.packed:
+            return self.codes
+        return unpack_codes(self.codes, self.storage_bits, self.k)
+
+    def code_colsum(self) -> torch.Tensor:
+        """``(..., N)`` int32 K-sum of the unpacked codes."""
+        if self.colsum is not None:
+            return self.colsum
+        return self.int8_codes().to(torch.int32).sum(dim=-2)
+
     def dequantize(self) -> torch.Tensor:
         """fp32 weight on the exact fake-quant grid."""
-        return self.codes.to(torch.float32) * self.scale + self.bias
+        return self.int8_codes().to(torch.float32) * self.scale + self.bias
 
+    # ---- accounting (from shapes; no device sync) -------------------------
     def codes_bytes(self) -> int:
+        """Device bytes of the code array (1 byte per stored word)."""
         return self.codes.numel()
 
     def aux_bytes(self) -> int:
+        """Device bytes of the affine terms (fp32 scale + bias)."""
         return 4 * (self.scale.numel() + self.bias.numel())
+
+    def weight_count(self) -> int:
+        """Logical weight count (unpacked: stack x K x N)."""
+        return math.prod(self.codes.shape[:-2]) * self.k * self.codes.shape[-1]

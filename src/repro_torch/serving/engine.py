@@ -1,28 +1,32 @@
-"""Batched serving engine over the CGMQ-quantized model (int8, paged, greedy).
+"""Batched serving engine over the CGMQ-quantized model (paged, greedy).
 
 Counterpart of ``repro/serving/engine.py``, reduced to this slice:
 
-  * ``export_int_model`` freezes (params, quant_state) into int8
-    ``QuantizedTensor``s per site; ``make_uniform_quant_state`` is the
-    uniform stand-in state (gate 2.2, i.e. 8 bits, per channel).
-  * ``ServingEngine`` keeps slots over a paged KV pool with a device-side
-    block allocator. Wave admission: each free slot takes the next waiting
-    request and prefills its whole (bucket-padded) prompt in one forward
-    (``tfm.prefill_slot``); then every tick runs ``tick_alloc``, one
-    ``decode_step`` for all slots and the greedy pick on the device, and
+  * ``export_int_model`` freezes (params, quant_state) into
+    ``QuantizedTensor``s per site at their 2/4/8-bit storage class (2- and
+    4-bit codes packed along K). ``make_uniform_quant_state`` is the uniform
+    stand-in state (gate 2.2, i.e. 8 bits, per channel);
+    ``make_mixed_quant_state`` the mixed 2/4/8-bit one.
+  * ``ServingEngine`` keeps slots over a paged KV pool -- bf16/fp32, or
+    int8/int4 codes with fp16 group scales (``kv_dtype``) -- with a
+    device-side block allocator. Wave admission: each free slot takes the
+    next waiting request and prefills its whole (bucket-padded) prompt in
+    one forward (``tfm.prefill_slot``); then every tick runs ``tick_alloc``,
+    one ``decode_step`` for all slots and the greedy pick on the device, and
     fetches the tick's results in exactly ONE host transfer (``_sync``,
     counted in ``stats["tick_syncs"]``).
 
 Not ported yet, each rejected with ``NotImplementedError`` naming its
-ROADMAP item: the ring layout, quantized KV, integer activation GEMMs,
-chunked prefill, windows, sampling with temperature, packed sub-byte codes.
-Prefix sharing, preemption, admission control and deadlines are absent.
+ROADMAP item: the ring layout, integer activation GEMMs, chunked prefill,
+windows, sampling with temperature. Prefix sharing, preemption, admission
+control and deadlines are absent.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
 from typing import Sequence
 
@@ -36,6 +40,7 @@ from repro_torch.core.sites import (QuantConfig, QuantContext, init_gates,
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.quant import export_sites, specs_from_state
+from repro_torch.quant.kv import KVQuantSpec, kv_cache_report
 from repro_torch.serving import kv_pool
 from repro_torch.serving.sampling import (SamplingParams, finite_rows,
                                           greedy_tokens)
@@ -57,18 +62,20 @@ def _check_params_device(params, dev: torch.device):
 
 
 def export_int_model(params, cfg: ModelConfig, quant_state: dict, *,
-                     warn: bool = True, device=None):
-    """Full-model int8 export for the serving GEMMs.
+                     pack: bool = True, warn: bool = True, device=None):
+    """Full-model quantized export for the serving GEMMs.
 
     Takes every site's (stacked) weight from ``tfm.site_weights`` and
     freezes it at its per-layer, per-channel bits through
-    ``quant.export_sites``. Returns ``(qweights, ledger)``: "<site>.w" ->
-    ``QuantizedTensor`` and the ``ExportLedger`` of every site.
+    ``quant.export_sites``, in its 2/4/8-bit storage class (``pack=False``
+    keeps the unpacked int8 oracle layout). Returns ``(qweights, ledger)``:
+    "<site>.w" -> ``QuantizedTensor`` and the ``ExportLedger`` of every
+    site.
     """
     _check_params_device(params, resolve_device(device))
     return export_sites(tfm.site_weights(params, cfg), tfm.collect_sites(cfg),
                         quant_state["gates"], quant_state["betas"],
-                        quant_state["signed"], warn=warn)
+                        quant_state["signed"], pack=pack, warn=warn)
 
 
 def make_uniform_quant_state(cfg: ModelConfig, params, *, gate_init=2.2,
@@ -83,6 +90,30 @@ def make_uniform_quant_state(cfg: ModelConfig, params, *, gate_init=2.2,
     betas, signed = split_learnable_ranges(
         init_ranges_from_weights(sites, qcfg, lambda n: None, dev))
     return {"qcfg": qcfg, "gates": gates, "betas": betas, "signed": signed}
+
+
+# Gate values landing exactly on T(g) = 2 / 4 / 8 bits (core.gates Eq. 4).
+MIXED_GATE_LEVELS = (0.8, 1.5, 2.5)
+
+
+def make_mixed_quant_state(cfg: ModelConfig, params, *, device=None):
+    """A stand-in trained CGMQ state with MIXED 2/4/8-bit weight sites, as
+    ``repro``'s: per-channel weight gates cycle through
+    ``MIXED_GATE_LEVELS`` site by site in sorted key order, activations
+    stay 8-bit. Not a trained state: the workload of the packed sub-byte
+    serving path."""
+    qs = make_uniform_quant_state(cfg, params, gate_init=2.5, device=device)
+    gates = {}
+    wi = 0
+    for key in sorted(qs["gates"]):     # repro's key order, too
+        g = qs["gates"][key]
+        if key.endswith(".w"):
+            g = torch.full_like(
+                g, MIXED_GATE_LEVELS[wi % len(MIXED_GATE_LEVELS)])
+            wi += 1
+        gates[key] = g
+    qs["gates"] = gates
+    return qs
 
 
 # ---------------------------------------------------------------------------
@@ -137,11 +168,14 @@ class ServingEngine:
     """Slot-based wave-admission serving around prefill_slot / decode_step.
 
     ``quant_state=None`` serves the float weights (mode "off"); with a
-    quant_state every matmul site serves its int8 export through the fused
-    dequant GEMM. ``block_size``/``num_blocks`` size the pool; the default
-    ``slots * ceil(max_seq/bs) + 1`` blocks hold every slot at ``max_seq``,
-    so the in-tick allocator can never run dry. ``device=None`` means the
-    card.
+    quant_state every matmul site serves its export through the fused
+    dequant GEMMs (int8 codes: K1, packed 2/4-bit codes: K4). ``kv_dtype``
+    is the pool's storage: "bf16"/"fp32" floats, or "int8"/"int4" codes
+    with fp16 scales over groups of ``gcd(head_dim, 32)`` head elements,
+    quantized where they are written. ``block_size``/``num_blocks`` size
+    the pool; the default ``slots * ceil(max_seq/bs) + 1`` blocks hold
+    every slot at ``max_seq``, so the in-tick allocator can never run dry.
+    ``device=None`` means the card.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
@@ -153,8 +187,6 @@ class ServingEngine:
                  attention_window=None, device=None):
         unported = {
             "kv_layout='ring'": (kv_layout == "ring", 10, "the ring layout"),
-            f"kv_dtype={kv_dtype!r}": (kv_dtype in ("int8", "int4"), 8,
-                                       "quantized KV cache"),
             "act_bits": (act_bits is not None, 9, "fully-integer GEMMs"),
             "prefill_chunk_tokens": (prefill_chunk_tokens is not None, 12,
                                      "continuous batching"),
@@ -168,7 +200,7 @@ class ServingEngine:
                     f"({what})")
         if kv_layout not in ("auto", "paged"):
             raise ValueError(f"kv_layout {kv_layout!r}")
-        if kv_dtype not in ("bf16", "fp32"):
+        if kv_dtype not in ("bf16", "fp32", "int8", "int4"):
             raise ValueError(f"kv_dtype {kv_dtype!r}")
         tfm.check_supported(cfg)
         self.device = resolve_device(device)
@@ -198,10 +230,21 @@ class ServingEngine:
                 f"num_blocks={num_blocks} < {min_blocks} oversubscribes the "
                 f"pool; preemption is ported with ROADMAP queue 1 item 11")
         self.num_blocks = num_blocks or min_blocks
-        store = torch.float32 if kv_dtype == "fp32" else torch.bfloat16
+        self.kv_dtype = kv_dtype
+        self._kv_store = torch.float32 if kv_dtype == "fp32" \
+            else torch.bfloat16
+        self.kv_spec = None
+        if kv_dtype in ("int8", "int4"):
+            # the largest power-of-two group <= 32 dividing head_dim, so the
+            # kernel never sees a ragged group
+            self.kv_spec = KVQuantSpec(bits=8 if kv_dtype == "int8" else 4,
+                                       group_size=math.gcd(cfg.head_dim, 32),
+                                       head_dim=cfg.head_dim)
         self.cache = tfm.init_paged_cache(cfg, slots, self.num_blocks,
-                                          block_size, kv_dtype=store,
+                                          block_size, kv_dtype=self._kv_store,
+                                          kv_spec=self.kv_spec,
                                           device=self.device)
+        self._check_kv_contract()
         self.alloc = kv_pool.init_alloc(self.num_blocks, slots,
                                         self.max_blocks, device=self.device)
         self.max_stop = max_stop
@@ -223,6 +266,29 @@ class ServingEngine:
                       "generated_tokens": 0, "nan_failures": 0,
                       "tick_syncs": 0, "admit_syncs": 0,
                       "prefill_time_s": 0.0, "decode_time_s": 0.0}
+
+    def _check_kv_contract(self):
+        """Every pool holds exactly the declared storage: the float dtype,
+        or codes of the spec's dtype with fp16 scales."""
+        spec = self.kv_spec
+        if spec is not None:
+            want = {"k": spec.code_dtype, "v": spec.code_dtype,
+                    "k_scale": spec.scale_dtype, "v_scale": spec.scale_dtype}
+        else:
+            want = {"k": self._kv_store, "v": self._kv_store}
+        for entry in self.cache["layers"]:
+            have = {name: t.dtype for name, t in entry.items()}
+            if have != want:
+                raise RuntimeError(f"KV pool holds {have}, kv_dtype="
+                                   f"{self.kv_dtype!r} declares {want}")
+
+    def kv_report(self) -> dict:
+        """Bytes per cached token of the pools, by layer and in total
+        (``quant.kv.kv_cache_report``)."""
+        kinds = list(self.cfg.block_pattern) * self.cfg.pattern_repeats
+        return kv_cache_report(kinds, self.cfg.n_kv_heads, self.cfg.head_dim,
+                               spec=self.kv_spec, dtype=self._kv_store,
+                               kv_dtype=self.kv_dtype)
 
     # ------------------------------------------------------------------
     def _prefill_shape(self, plen: int) -> int:

@@ -1,8 +1,11 @@
 """Paged KV cache: block pool, block tables, device-resident allocator.
 
-Counterpart of ``repro/serving/kv_pool.py`` for float pools without prefix
-sharing. Each attention layer keeps a pool of ``num_blocks`` fixed-size
-token blocks ``{"k": (num_blocks, bs, KV, hd), "v": ...}``; every slot owns
+Counterpart of ``repro/serving/kv_pool.py`` without prefix sharing. Each
+attention layer keeps a pool of ``num_blocks`` fixed-size token blocks
+``{"k": (num_blocks, bs, KV, hd), "v": ...}`` (float), or codes plus fp16
+group scales ``{"k", "v": (num_blocks, bs, KV, packed_head), "k_scale",
+"v_scale": (num_blocks, bs, KV, ng)}`` (quantized, ``quant/kv.py``); every
+slot owns
 a row of the shared block table ``(slots, max_blocks)`` mapping its logical
 blocks to physical ids (``-1`` = unallocated). The allocator state is four
 device tensors -- a free stack (``free`` + ``n_free``), per-block ``ref``
@@ -23,17 +26,32 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.quant import kv as kv_codec
 
 FLOAT_POOL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def init_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
-              dtype=torch.bfloat16, *, device):
-    """One attention layer's K/V block pool (unstacked), zero-filled."""
+              dtype=torch.bfloat16, *, spec=None, device):
+    """One attention layer's K/V block pool (unstacked), zero-filled.
+
+    With ``spec`` (a ``quant.kv.KVQuantSpec``) the pool is quantized: codes
+    plus fp16 group scales (the zero-filled garbage block dequantizes to
+    exact zeros).
+    """
+    if spec is not None:
+        if spec.head_dim != cfg.head_dim:
+            raise ValueError(f"spec {spec} for head_dim {cfg.head_dim}")
+        lead = (num_blocks, block_size, cfg.n_kv_heads)
+        codes = dict(dtype=spec.code_dtype, device=device)
+        scales = dict(dtype=spec.scale_dtype, device=device)
+        return {"k": torch.zeros(lead + (spec.packed_head,), **codes),
+                "v": torch.zeros(lead + (spec.packed_head,), **codes),
+                "k_scale": torch.zeros(lead + (spec.num_groups,), **scales),
+                "v_scale": torch.zeros(lead + (spec.num_groups,), **scales)}
     if dtype not in FLOAT_POOL_DTYPES:
-        raise NotImplementedError(
-            f"KV pools of {dtype} are ported with ROADMAP queue 1 item 8 "
-            f"(quantized KV cache); float pools are bf16 or fp32")
+        raise ValueError(f"float KV pools are bf16 or fp32, got {dtype}; "
+                         f"integer storage goes through a KVQuantSpec")
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -137,18 +155,27 @@ def write_prompt_blocks(pool, k, v, row, start_blk: int, nblk: int,
     """Scatter one slot's prompt K/V into a layer pool as whole blocks, IN
     PLACE.
 
-    ``k``/``v``: (S, KV, hd), padded here to a block multiple. Blocks
-    ``start_blk <= j < nblk`` land at ``row[j]``; the rest (a shared prefix
-    the slot must not overwrite, and the pad tail) go to the garbage block.
+    ``k``/``v``: the float prompt K/V, (S, KV, hd), padded here to a block
+    multiple. A quantized pool quantizes them at this write site, and codes
+    and scales take the same pad, reshape and scatter. Blocks ``start_blk
+    <= j < nblk`` land at ``row[j]``; the rest (a shared prefix the slot
+    must not overwrite, and the pad tail) go to the garbage block.
     """
     bs = block_size
     s = k.shape[0]
+    spec = kv_codec.spec_from_cache(pool, k.shape[-1])
+    if spec is not None:
+        kc, ks = kv_codec.quantize_kv(k, spec)
+        vc, vs = kv_codec.quantize_kv(v, spec)
+        entries = {"k": kc, "v": vc, "k_scale": ks, "v_scale": vs}
+    else:
+        entries = {"k": k, "v": v}
     pad = (-s) % bs
     nblocks = (s + pad) // bs
     j = torch.arange(nblocks, device=row.device)
     write = (j >= start_blk) & (j < nblk)
     phys = torch.where(write, torch.clamp(row[:nblocks], min=0), 0).long()
-    for name, x in (("k", k), ("v", v)):
+    for name, x in entries.items():
         if pad:
             x = F.pad(x, (0, 0, 0, 0, 0, pad))
         tgt = pool[name]

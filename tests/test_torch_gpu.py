@@ -1,5 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version at small and ragged shapes, and the serving engine on the card.
+version at small and ragged shapes (K4 also bit for bit against K1 on the
+unpacked codes), and the serving engine on the card, uniform int8 and
+mixed 2/4/8-bit over an int4 KV pool.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it also runs where only PyTorch is installed (the
@@ -13,13 +15,19 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.kernels.paged_attention.paged_attention import \
-    paged_attention
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul
-from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.kernels.paged_attention.paged_attention import (
+    paged_attention, paged_attention_quant)
+from repro_torch.kernels.paged_attention.ref import (
+    bf16_rounding_tolerance, paged_attention_ref)
+from repro_torch.kernels.quant_matmul.quant_matmul import (
+    quant_matmul, quant_matmul_packed)
+from repro_torch.kernels.quant_matmul.ref import (quant_matmul_packed_ref,
+                                                  quant_matmul_ref)
 from repro_torch.models import transformer as tfm
+from repro_torch.quant.kv import KVQuantSpec, dequantize_kv, quantize_kv
+from repro_torch.quant.pack import pack_codes
 from repro_torch.serving.engine import (SamplingParams, ServingEngine,
+                                        make_mixed_quant_state,
                                         make_uniform_quant_state)
 
 pytestmark = pytest.mark.gpu
@@ -28,6 +36,9 @@ pytestmark = pytest.mark.gpu
 K1_RTOL = 1e-4
 # bf16 probabilities in the plain version vs fp32 in the kernel: 2^-8 max|v|
 K2_TOL_FACTOR = 2.0 ** -8
+# K2b against the plain version with q in fp32 (no bf16 rounding at all):
+# the same fp32 function, sums in another order (see chip_smoke.py)
+K2B_F32_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -87,6 +98,78 @@ def test_paged_attention_kernel_matches_plain(cuda, hd, pool_dtype, softcap):
     assert float((got - want).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("mkn", [(3, 101, 37), (1, 64, 96), (8, 2048, 256),
+                                 (64, 640, 130), (130, 66, 65)])
+def test_quant_matmul_packed_kernel_matches_plain_and_k1(cuda, mkn, bits):
+    """K4 on pack(c) against its plain version, and bit for bit against K1
+    on c: same tiles, same K order, same epilogue."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(sum(mkn) + bits)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    half = 1 << (bits - 1)
+    codes = torch.randint(-half, half, (k, n), generator=g, device=cuda,
+                          dtype=torch.int8)
+    packed = pack_codes(codes, bits)
+    scale = torch.rand((n,), generator=g, device=cuda) * 0.01 + 1e-3
+    bias = (torch.rand((n,), generator=g, device=cuda) - 0.5) * 1e-3
+    rowsum = x.sum(dim=1)
+    before = quant_matmul_packed.launches
+    got = quant_matmul_packed(x, packed, scale, bias, rowsum, bits=bits, k=k)
+    want = quant_matmul_packed_ref(x, packed, scale, bias, bits=bits, k=k)
+    k1 = quant_matmul(x, codes, scale, bias, rowsum)
+    mag = x.abs() @ (codes.float() * scale + bias).abs()
+    torch.cuda.synchronize()
+    assert quant_matmul_packed.launches == before + 1
+    assert bool(((got - want).abs() <= K1_RTOL * mag + 1e-6).all())
+    assert torch.equal(got, k1)
+
+
+def _quant_pools(bits, hd, b=5, kvh=2, bs=8, mb=6, seed=0):
+    """Random K/V quantized by the port's codec, a table with every -1 past
+    pos, and the dequantized pools."""
+    nb = b * mb + 1
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, mb * bs, b).astype(np.int32)
+    pos[0], pos[1] = mb * bs - 1, 0
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    table = np.full((b, mb), -1, np.int32)
+    for i, p in enumerate(pos):
+        table[i, :p // bs + 1] = perm[i * mb:i * mb + p // bs + 1]
+    spec = KVQuantSpec(bits=bits, group_size=min(32, hd), head_dim=hd)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k, v = (quantize_kv(torch.randn((nb, bs, kvh, hd), generator=g,
+                                    device="cuda"), spec) for _ in range(2))
+    deq = [dequantize_kv(c, sc, spec) for c, sc in (k, v)]
+    return (k, v, torch.from_numpy(table).cuda(),
+            torch.from_numpy(pos).cuda(), deq)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("softcap", [None, 5.0])
+def test_paged_attention_quant_kernel_matches_plain(cuda, bits, hd, softcap):
+    (kc, ks), (vc, vs), table, pos, (kd, vd) = _quant_pools(bits, hd,
+                                                            seed=hd + bits)
+    grp = 4
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    q = torch.randn((table.shape[0], kc.shape[2], grp, hd), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    before = paged_attention_quant.launches
+    got = paged_attention_quant(q, kc, vc, ks, vs, table, pos,
+                                softcap=softcap)
+    want = paged_attention_ref(q, kc, vc, table, pos, softcap=softcap,
+                               k_scale=ks, v_scale=vs)
+    f32 = paged_attention_ref(q.float(), kc, vc, table, pos, softcap=softcap,
+                              k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert paged_attention_quant.launches == before + 1
+    tol = bf16_rounding_tolerance(q, kd, vd, table, pos)
+    assert float((got - want).abs().max()) <= tol
+    assert float((got - f32).abs().max()) <= K2B_F32_RTOL * float(
+        vd.abs().max())
+
+
 def test_engine_on_card_runs_through_the_kernels(cuda):
     cfg = get_smoke_config("tinyllama-1.1b")
     params = _to(tfm.init_params(cfg, 0, device="cpu"), cuda)
@@ -104,6 +187,30 @@ def test_engine_on_card_runs_through_the_kernels(cuda):
     assert quant_matmul.launches == (7 * cfg.n_layers + 1) * (
         st["prefill_forwards"] + st["decode_ticks"])
     assert paged_attention.launches == cfg.n_layers * st["decode_ticks"]
+
+
+def test_mixed_engine_over_int4_kv_on_card(cuda):
+    """The mixed 2/4/8-bit artifact over an int4 pool: every 2/4-bit site
+    goes through K4, every 8-bit one through K1, attention through K2b."""
+    cfg = get_smoke_config("tinyllama-1.1b")
+    params = _to(tfm.init_params(cfg, 0, device="cpu"), cuda)
+    eng = ServingEngine(cfg, params, slots=3, max_seq=64, kv_dtype="int4",
+                        quant_state=make_mixed_quant_state(cfg, params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (3, 9, 20, 7)]
+    quant_matmul.launches = quant_matmul_packed.launches = 0
+    paged_attention.launches = paged_attention_quant.launches = 0
+    res = eng.generate(prompts, SamplingParams(max_new=5))
+    st = eng.stats
+    assert all(r.finish_reason == "length" and len(r.tokens) == 5
+               and all(0 <= t < cfg.vocab_size for t in r.tokens)
+               for r in res)
+    assert st["tick_syncs"] == st["decode_ticks"]
+    forwards = st["prefill_forwards"] + st["decode_ticks"]
+    assert quant_matmul.launches == 2 * cfg.n_layers * forwards
+    assert quant_matmul_packed.launches == (5 * cfg.n_layers + 1) * forwards
+    assert paged_attention_quant.launches == cfg.n_layers * st["decode_ticks"]
+    assert paged_attention.launches == 0
 
 
 def _to(tree, dev):

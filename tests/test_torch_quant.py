@@ -1,4 +1,4 @@
-"""The port's quantizer, specs, quant state and int8 export against repro.
+"""The port's quantizer, specs, quant states and export against repro.
 
 Same inputs, made from a seed with numpy, go through ``repro`` (JAX, on the
 CPU) and ``repro_torch`` (``device="cpu"``). Everything here is integer
@@ -32,6 +32,9 @@ from repro.models import transformer as jtfm
 from repro.quant.spec import QuantSpec as JQuantSpec
 from repro.quant.spec import specs_from_state as j_specs
 from repro.serving.engine import export_int_model as j_export_int_model
+from repro.serving.engine import MIXED_GATE_LEVELS as J_MIXED_GATE_LEVELS
+from repro.serving.engine import \
+    make_mixed_quant_state as j_make_mixed_quant_state
 from repro.serving.engine import \
     make_uniform_quant_state as j_make_uniform_quant_state
 from repro_torch import bridge
@@ -40,9 +43,9 @@ from repro_torch.core import gates as tg
 from repro_torch.core import quantizer as tq
 from repro_torch.core.sites import QuantConfig, QuantContext
 from repro_torch.models import transformer as ttfm
-from repro_torch.quant.spec import (QuantizedTensor, QuantSpec,
-                                    specs_from_state)
-from repro_torch.serving.engine import (export_int_model,
+from repro_torch.quant.spec import QuantSpec, specs_from_state
+from repro_torch.serving.engine import (MIXED_GATE_LEVELS, export_int_model,
+                                        make_mixed_quant_state,
                                         make_uniform_quant_state)
 
 BITS = (2, 4, 8, 16, 32)
@@ -213,13 +216,50 @@ def test_serve_mode_sites_bit_equal(smoke):
 
 
 def test_unported_quant_options_raise(smoke):
-    _, _, _, tcfg, tparams = smoke
-    w = torch.randn(16, 8)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        QuantizedTensor.from_float(w, 4.0, 1.0, True, storage_bits=4)
-    four_bit = make_uniform_quant_state(tcfg, tparams, gate_init=1.5,
-                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        export_int_model(tparams, tcfg, four_bit, device="cpu")
     with pytest.raises(NotImplementedError, match="item 2"):
         QuantContext(mode="train")
+
+
+def test_mixed_state_and_packed_export_bit_equal(smoke):
+    """make_mixed_quant_state's gates are repro's, and the export of that
+    state (2-, 4- and 8-bit storage classes, packed and pack=False) is
+    bit-equal to repro's: codes, affine terms, colsums, the ledger and the
+    accessors of every QuantizedTensor."""
+    cfg, params, _, tcfg, tparams = smoke
+    jqs = j_make_mixed_quant_state(cfg, params)
+    tqs = make_mixed_quant_state(tcfg, tparams, device="cpu")
+    assert MIXED_GATE_LEVELS == J_MIXED_GATE_LEVELS
+    assert list(tqs["gates"]) == list(jqs["gates"])
+    for k, v in jqs["gates"].items():
+        _eq(v, tqs["gates"][k])
+    for k, v in jqs["betas"].items():
+        _eq(v, tqs["betas"][k])
+    for pack in (True, False):
+        jqw, jledger = j_export_int_model(params, cfg, jqs, pack=pack)
+        tqw, tledger = export_int_model(tparams, tcfg, tqs, pack=pack,
+                                        device="cpu")
+        assert tledger.entries == jledger.entries
+        assert sorted(tqw) == sorted(jqw)
+        for k, jt in jqw.items():
+            t = tqw[k]
+            assert (t.storage_bits, t.k, t.packed) \
+                == (jt.storage_bits, jt.k, jt.packed)
+            for field in ("codes", "scale", "bias", "colsum"):
+                _eq(getattr(jt, field), getattr(t, field))
+            assert t.codes.is_contiguous()
+            _eq(jt.int8_codes(), t.int8_codes())
+            _eq(jt.code_colsum(), t.code_colsum())
+            _eq(jt.dequantize(), t.dequantize())
+            assert (t.codes_bytes(), t.aux_bytes(), t.weight_count()) \
+                == (jt.codes_bytes(), jt.aux_bytes(), jt.weight_count())
+    # the site -> storage class map of the mixed state; packed codes are
+    # smaller than the pack=False oracle layout (tqw, the last export)
+    packed, _ = export_int_model(tparams, tcfg, tqs, device="cpu")
+    bits = {k.rsplit("/", 1)[-1]: q.storage_bits for k, q in packed.items()}
+    assert bits == {"head.w": 2, "attn_q.w": 2, "mlp_gate.w": 2,
+                    "attn_k.w": 4, "attn_v.w": 4, "mlp_up.w": 4,
+                    "attn_o.w": 8, "mlp_down.w": 8}
+    assert all(q.codes.dtype == (torch.uint8 if q.packed else torch.int8)
+               for q in packed.values())
+    assert sum(q.codes_bytes() for q in packed.values()) \
+        < sum(q.codes_bytes() for q in tqw.values())
