@@ -29,6 +29,22 @@ Phases, in order; any failure exits non-zero:
                  (2- and 4-bit sites packed) over an int4 KV pool, with its
                  exact launch counts, the export's and the KV cache's device
                  bytes; then its own profile.
+  8. train-parity -- one CGMQ step of a 2-layer full-width model on the CPU
+                 (plain versions) and on the card (K3), same state: loss,
+                 gradient norms per leaf and new gates, each against a
+                 stated tolerance.
+  9. train    -- full tinyllama-1.1b (22 layers, random seeded weights),
+                 batch 8 x 128 of lm_tokens: 2 fp32 warmup steps,
+                 activation calibration on 3 batches, then 12 CGMQ steps
+                 from 16-bit gates under budget_rbop 0.07; K3 launches
+                 exactly 221 per CGMQ forward and none before; the
+                 controller certifies; ms per step, peak memory and a
+                 torch.profiler split of one step.
+ 10. train->serve -- the certified state exported to int codes and served
+                 (2 greedy requests) through ServingEngine on the card.
+
+The kernels phase also holds K3 (fused gated fake-quant) bit for bit
+against its plain version at the training step's shapes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Imports torch and the port
@@ -100,6 +116,25 @@ K2B_F32_RTOL = 1e-4
 PARITY_RTOL = 4e-2
 PARITY_SPREAD_FACTOR = 2.0
 
+# Training (phases 8-10): the recipe's defaults (per-tensor gates, dir2,
+# gate_lr 0.01, dir_clip 10, Adam lr 1e-4 clipped at 1.0) on batches of
+# 8 x 128 tokens of lm_tokens(seed 0, noise 0.05).
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+WARMUP_STEPS, CALIB_BATCHES, CGMQ_STEPS = 2, 3, 12
+# CGMQ starts every gate at 16 bits; the budget needs 8 bits everywhere
+# (rbop 0.0625), which a clipped direction reaches in one step
+TRAIN_GATE0, TRAIN_BUDGET_RBOP = 3.05, 0.07
+# K3 gate levels: below the 0.5 clamp, then 2/4/8/16/16/32 bits
+K3_LEVELS = (0.3, 0.8, 1.5, 2.5, 3.05, 3.5, 5.5)
+# K3 per element: clip (2), subtract, divide, round, multiply, add
+K3_FLOPS_PER_ELEMENT = 7.0
+# train-parity: a 2-layer full-width step, batch x seq
+PARITY_TRAIN = (2, 64)
+# ... held to tests/test_torch_train.py's tolerances: the loss; a
+# gradient's norm, or a sum's error against its terms' L1 mass; new gates
+# from the same statistics to fp32 steps
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_CTRL_ATOL = 1e-3, 2e-2, 1e-6
+
 
 class SmokeFailure(SystemExit):
     pass
@@ -125,6 +160,37 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured into one
+    CUDA graph and replayed: for kernels whose device time per launch is
+    below the host cost of launching them from Python, where ``time_ms``
+    would time the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def copies_past_l2(nbytes: int, limit: int = 256) -> int:
@@ -476,6 +542,77 @@ def mixed_k4_shapes(cfg) -> dict:
             (d, cfg.d_ff, 4): layers}
 
 
+def k3_shapes(cfg) -> dict:
+    """(M, N, dtype) -> K3 launches per CGMQ forward of the [train] phase:
+    the 155 weight sites (fp32 params; the head is the tied embedding,
+    transposed) and the 66 fake-quantized activations (bf16, M = batch x
+    seq: attn_o, mlp_up and mlp_down of every layer)."""
+    d, hd, layers, ff = cfg.d_model, cfg.head_dim, cfg.n_layers, cfg.d_ff
+    m = TRAIN_BATCH * TRAIN_SEQ
+    return {(d, cfg.n_heads * hd, "float32"): 2 * layers,      # q, o
+            (d, cfg.n_kv_heads * hd, "float32"): 2 * layers,   # k, v
+            (d, ff, "float32"): 2 * layers,                    # gate, up
+            (ff, d, "float32"): layers,                        # down
+            (d, cfg.padded_vocab, "float32"): 1,               # head
+            (m, d, "bfloat16"): 2 * layers,         # attn_o, mlp_down acts
+            (m, ff, "bfloat16"): layers}            # mlp_up acts
+
+
+def k3_case(m: int, n: int, dtype: str, gen, card: str):
+    """K3 against its plain version at (M, N), bit for bit: per-channel
+    gates over every level (and below the 0.5 clamp) and the [train]
+    phase's scalar 16-bit gate, signed and unsigned. Timed at the scalar
+    gate, signed, L2-cold, from a replayed CUDA graph (``graph_ms``): a
+    launch is a few microseconds of device work, less than the wrapper's
+    host cost."""
+    import torch
+
+    from repro_torch.kernels.fake_quant.fake_quant import fake_quant
+    from repro_torch.kernels.fake_quant.ref import fake_quant_ref
+
+    dev = "cuda"
+    dt = getattr(torch, dtype)
+    x = (torch.randn((m, n), generator=gen, device=dev) * 1.5).to(dt)
+    levels = torch.tensor(K3_LEVELS, device=dev)
+    gate = levels[torch.arange(n, device=dev) % len(levels)]
+    scalar = torch.full((n,), TRAIN_GATE0, device=dev)
+    beta = torch.rand((n,), generator=gen, device=dev) * 1.7 + 0.3
+    mismatches, err = 0, 0.0
+    for g in (gate, scalar):
+        for signed in (True, False):
+            got = fake_quant(x, g, beta, signed)
+            want = fake_quant_ref(x, g, beta, signed)
+            mismatches += int((got != want).sum())
+            err = max(err, float((got.float() - want.float()).abs().max()))
+    res = {"shape": (m, n), "dtype": dtype, "mismatches": mismatches,
+           "max_abs_err": err, "ok": mismatches == 0}
+
+    xc = [x.clone() for _ in range(copies_past_l2(x.numel()
+                                                  * x.element_size()))]
+    it = iter(range(1 << 30))
+    res["ms"] = graph_ms(lambda: fake_quant(xc[next(it) % len(xc)], scalar,
+                                            beta, True))
+    res["plain_ms"] = graph_ms(lambda: fake_quant_ref(
+        xc[next(it) % len(xc)], scalar, beta, True))
+    # yardstick: the 8-bit per-tensor fake-quant of PyTorch, the same grid
+    # rounded in another order (a time, not a reference)
+    b0 = float(beta[0])
+    res["library_ms"] = graph_ms(
+        lambda: torch.fake_quantize_per_tensor_affine(
+            xc[next(it) % len(xc)], 2 * b0 / 255, 0, -128, 127))
+    res["bytes"] = 2 * m * n * x.element_size() + 8 * n
+    res["flops"] = K3_FLOPS_PER_ELEMENT * m * n
+    res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], res["flops"])
+    print(f"[kernels] fake_quant {dtype} M={m} N={n}: {mismatches} "
+          f"mismatches in 4 x {m * n} elements (bit for bit) -> "
+          f"{'ok' if res['ok'] else 'FAIL'}; kernel {res['ms']:.4f} ms, "
+          f"plain {res['plain_ms']:.4f} ms, library "
+          f"(fake_quantize_per_tensor_affine, 8 bits) "
+          f"{res['library_ms']:.4f} ms, bound {res['bound_ms'] * 1e3:.2f} us "
+          f"({res['bound_by']}) [{card}]")
+    return res
+
+
 def phase_kernels(cfg, m_prefill: int, card: str):
     import torch
 
@@ -498,15 +635,21 @@ def phase_kernels(cfg, m_prefill: int, card: str):
     for bits in (2, 4):
         k4[(3, 101, 37, bits)] = k4_case(3, 101, 37, bits, gen, card)
     k2b = {kv: k2b_case(kv, gen, card, max_pos) for kv in ("int8", "int4")}
+    k3 = {(m, n, dt): k3_case(m, n, dt, gen, card)
+          for m, n, dt in k3_shapes(cfg)}
+    for dt in ("float32", "bfloat16"):
+        k3[(3, 101, dt)] = k3_case(3, 101, dt, gen, card)
     bad = [r["shape"] for r in k1.values() if not r["ok"]] \
         + [f"softcap={r['softcap']}" for r in k2 if not r["ok"]] \
         + [(r["shape"], r["bits"]) for r in k4.values() if not r["ok"]] \
-        + [r["kv_dtype"] for r in k2b.values() if not r["ok"]]
+        + [r["kv_dtype"] for r in k2b.values() if not r["ok"]] \
+        + [(r["shape"], r["dtype"]) for r in k3.values() if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
     n_eq = sum(r["k1_bit_equal"] for r in k4.values())
     print(f"[kernels] K4 bit-equal to K1 on the unpacked codes in {n_eq} of "
-          f"{len(k4)} cases [{card}]")
-    return k1, k2, k4, k2b
+          f"{len(k4)} cases; K3 bit-equal to its plain version in all "
+          f"{len(k3)} cases [{card}]")
+    return k1, k2, k4, k2b, k3
 
 
 def _to(tree, dev):
@@ -663,6 +806,7 @@ def phase_parity(cfg, card: str, state: str = "uniform",
 
 def _counters() -> dict:
     """Every kernel wrapper of the port, by name; each counts its launches."""
+    from repro_torch.kernels.fake_quant.fake_quant import fake_quant
     from repro_torch.kernels.paged_attention.paged_attention import (
         paged_attention, paged_attention_quant)
     from repro_torch.kernels.quant_matmul.quant_matmul import (
@@ -671,7 +815,8 @@ def _counters() -> dict:
     return {"quant_matmul": quant_matmul,
             "quant_matmul_packed": quant_matmul_packed,
             "paged_attention": paged_attention,
-            "paged_attention_quant": paged_attention_quant}
+            "paged_attention_quant": paged_attention_quant,
+            "fake_quant": fake_quant}
 
 
 def phase_serve(cfg, prompts, card: str, *, mixed: bool = False,
@@ -718,12 +863,13 @@ def phase_serve(cfg, prompts, card: str, *, mixed: bool = False,
         want = {"quant_matmul": 2 * layers * forwards,
                 "quant_matmul_packed": (5 * layers + 1) * forwards,
                 "paged_attention": 0,
-                "paged_attention_quant": layers * st["decode_ticks"]}
+                "paged_attention_quant": layers * st["decode_ticks"],
+                "fake_quant": 0}
     else:
         want = {"quant_matmul": (7 * layers + 1) * forwards,
                 "quant_matmul_packed": 0,
                 "paged_attention": layers * st["decode_ticks"],
-                "paged_attention_quant": 0}
+                "paged_attention_quant": 0, "fake_quant": 0}
     for r in results:
         check(r.finish_reason == "length" and len(r.tokens) == MAX_NEW,
               f"request {r.rid}: {r.finish_reason}, {len(r.tokens)} tokens")
@@ -820,13 +966,432 @@ def phase_profile(eng, prompts, card: str, ticks: int = 5):
         f"{k} {v:.3f} ms" for k, v in top))
 
 
-def kernels_line(cfg, k1, k2, k4, k2b, launches, mixed_launches):
+def _train_recipe(cfg, batch: int, seq: int):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as steps_lib
+
+    return steps_lib.make_recipe(
+        cfg, ShapeConfig("train", seq, batch, "train"), check_every=1,
+        budget_rbop=TRAIN_BUDGET_RBOP)
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths of a tree of dicts/lists/tuples, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def _act_grad_mass():
+    """(masses, context): inside the context every train-mode activation
+    site records, by layer, the sum of |dL/da| of its backward: the L1
+    mass of the terms its probe's and its beta's gradients sum."""
+    from unittest import mock
+
+    from repro_torch.core.sites import QuantContext
+
+    mass = {}
+    act = QuantContext.act
+
+    def hooked(self, name, a):
+        out = act(self, name, a)
+        if a.requires_grad:
+            key = self._full(name) + ".a"
+            a.register_hook(lambda g: mass.setdefault(key, []).append(
+                g.float().abs().sum().cpu()))
+        return out
+
+    return mass, mock.patch.object(QuantContext, "act", hooked)
+
+
+def _train_parity_run(recipe, state, batch):
+    """One CGMQ step's loss, gradients, statistics and new gates."""
+    import torch
+
+    from repro_torch.core.controller import controller_update
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adam import tree_leaves
+
+    t0 = time.perf_counter()
+    amass, hooks = _act_grad_mass()
+    with hooks:
+        loss, (gp, gb, gprobe), astats, wstats = steps_lib.loss_and_grads(
+            recipe, state, batch)
+    new = controller_update(state.cgmq, recipe.ccfg, recipe.sites, gprobe,
+                            wstats, astats, recipe.budget_bop)
+    # the weight sites' L1 masses: |dL/dW| summed per layer
+    mass = {k: w.abs().reshape(w.shape[0] if w.ndim == 3 else 1, -1).sum(
+        dim=1).reshape(gprobe[k].shape).cpu()
+        for k, w in tfm.site_weights(gp, recipe.cfg).items()}
+    mass.update({k: torch.stack(v[::-1]).reshape(gprobe[k].shape)
+                 for k, v in amass.items()})
+    cpu = {k: v.cpu() for k, v in gb.items()}
+    return {"loss": float(loss),
+            "param_norms": [float(g.norm()) for g in tree_leaves(gp)],
+            "sums": {("betas", k): v for k, v in cpu.items()}
+            | {("probes", k): v.cpu() for k, v in gprobe.items()},
+            "mass": mass,
+            "stats": (gprobe, wstats, astats),
+            "gates": {k: v.cpu() for k, v in new.gates.items()},
+            "sat": bool(new.sat), "bop": float(new.bop),
+            "s": time.perf_counter() - t0}
+
+
+def phase_train_parity(cfg, card: str):
+    """One CGMQ step of a 2-layer full-width model on the CPU (plain
+    versions) and on the card (K3), from the same state and batch: weight
+    gates cycled over 2/4/8/16 bits with ranges from the weights (a
+    placeholder range of 1.0 puts every 2-bit weight at +-1/3 and the
+    model's logits at ~60, where a single flipped code moves everything),
+    activation gates over 8/16 bits (at 2 and 4 bits an activation grid
+    turns every bf16 rounding the two devices place differently into a
+    whole grid step; see tests/test_torch_train.py). Held: the loss; each
+    parameter gradient's norm; each beta and probe gradient, a sum over
+    its site's tensor, against that tensor's L1 gradient mass; the new
+    gates from the CPU's statistics, and from the card's own."""
+    import torch
+
+    from repro_torch.bridge import train_state_from_numpy, tree_to_numpy
+    from repro_torch.core.controller import controller_update, init_state
+    from repro_torch.core.gates import gate_to_bits
+    from repro_torch.core.sites import (init_ranges_from_weights,
+                                        split_learnable_ranges)
+    from repro_torch.data.synthetic import lm_tokens
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tfm
+
+    b, sq = PARITY_TRAIN
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    recipe = _train_recipe(cfg2, b, sq)
+    state = steps_lib.init_train_state(recipe, SEED, device="cpu")
+    weights = tfm.site_weights(state.params, cfg2)
+    betas, _ = split_learnable_ranges(init_ranges_from_weights(
+        recipe.sites, recipe.qcfg, lambda n: weights[n + ".w"], "cpu"))
+    state.betas = {k: betas[k] if k.endswith(".w") else v
+                   for k, v in state.betas.items()}
+    levels = {"w": (0.8, 1.5, 2.5, 3.5), "a": (2.5, 3.5)}
+    state.cgmq = init_state(
+        {k: torch.full_like(g, levels[k[-1]][i % len(levels[k[-1]])])
+         for i, (k, g) in enumerate(sorted(state.cgmq.gates.items()))},
+        recipe.sites)
+    chunk = torch.from_numpy(lm_tokens(b, sq, cfg.vocab_size, seed=SEED + 3,
+                                       noise=0.05))
+    cpu = _train_parity_run(recipe, state, {"tokens": chunk[:, :-1],
+                                            "targets": chunk[:, 1:]})
+    dev_state = train_state_from_numpy(tree_to_numpy(state), device="cuda")
+    card_ = _train_parity_run(recipe, dev_state, {
+        "tokens": chunk[:, :-1].cuda(), "targets": chunk[:, 1:].cuda()})
+    # the card's controller on the CPU's statistics: elementwise fp32
+    to_card = (lambda t: {k: v.cuda() for k, v in t.items()})
+    gprobe, wstats, astats = cpu["stats"]
+    same = controller_update(
+        dev_state.cgmq, recipe.ccfg, recipe.sites, to_card(gprobe),
+        to_card(wstats), {k: to_card(v) for k, v in astats.items()},
+        recipe.budget_bop)
+    same_diff = max(float((same.gates[k].cpu() - v).abs().max())
+                    for k, v in cpu["gates"].items())
+
+    loss_tol = TRAIN_LOSS_RTOL * abs(cpu["loss"])
+    loss_diff = abs(card_["loss"] - cpu["loss"])
+    rel = [abs(g - c) / c if c else (0.0 if g == c else math.inf)
+           for c, g in zip(cpu["param_norms"], card_["param_norms"])]
+    names = _leaf_names(state.params)
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    sums = {}
+    for (kind, k), v in cpu["sums"].items():
+        d = (card_["sums"][(kind, k)] - v).abs()
+        m = cpu["mass"].get(k)
+        # a site the forward never reaches: zero on both devices
+        sums[(kind, k)] = float((d / m).max()) if m is not None \
+            else (math.inf if bool(d.any()) else 0.0)
+    worst_sum = max(sums, key=sums.get)
+    step_max = recipe.ccfg.gate_lr * recipe.ccfg.dir_clip
+    own_diff = max(float((card_["gates"][k] - v).abs().max())
+                   for k, v in cpu["gates"].items())
+    bits_equal = all(torch.equal(gate_to_bits(card_["gates"][k]),
+                                 gate_to_bits(v))
+                     for k, v in cpu["gates"].items())
+    print(f"[train-parity] 2-layer full-width, batch {b} x {sq}, weight "
+          f"gates 2/4/8/16 bits (ranges from the weights), activation gates "
+          f"8/16 bits: CPU {cpu['s']:.1f} s, card {card_['s']:.1f} s "
+          f"[{card}]")
+    print(f"[train-parity] loss cpu {cpu['loss']:.6f} card "
+          f"{card_['loss']:.6f}: |diff| {loss_diff:.3e} (tol {loss_tol:.3e} "
+          f"= {TRAIN_LOSS_RTOL:g} x loss)")
+    print(f"[train-parity] parameter gradient norms, {len(rel)} leaves: max "
+          f"relative diff {rel[worst]:.3e} at {names[worst]} (tol "
+          f"{TRAIN_GRAD_RTOL:g}); median {sorted(rel)[len(rel) // 2]:.3e}")
+    print(f"[train-parity] beta and probe gradients, {len(sums)} sums: max "
+          f"|diff| / L1 mass {sums[worst_sum]:.3e} at {'/'.join(worst_sum)} "
+          f"(tol {TRAIN_GRAD_RTOL:g})")
+    print(f"[train-parity] new gates from the CPU's statistics: max |diff| "
+          f"{same_diff:.3e} (tol {TRAIN_CTRL_ATOL:g}); from the card's own: "
+          f"max |diff| {own_diff:.3e} (tol {step_max:g} = gate_lr x "
+          f"dir_clip), bit-widths {'equal' if bits_equal else 'DIFFER'}; "
+          f"sat {cpu['sat']}/{card_['sat']}, bop {cpu['bop']:.6e}/"
+          f"{card_['bop']:.6e}")
+    check(math.isfinite(card_["loss"]) and loss_diff <= loss_tol,
+          f"train loss {card_['loss']} vs plain {cpu['loss']}")
+    check(rel[worst] <= TRAIN_GRAD_RTOL,
+          f"gradient norm of {names[worst]} off by {rel[worst]}")
+    check(sums[worst_sum] <= TRAIN_GRAD_RTOL,
+          f"{worst_sum} gradient off by {sums[worst_sum]} of its mass")
+    check(same_diff <= TRAIN_CTRL_ATOL and own_diff <= step_max
+          and bits_equal, "new gates differ")
+    check(cpu["sat"] == card_["sat"] and cpu["bop"] == card_["bop"],
+          "sat or bop differ")
+
+
+def phase_train(cfg, card: str):
+    """The 22-layer CGMQ training path: 2 fp32 warmup steps, activation
+    calibration on 3 batches, then 12 CGMQ steps from 16-bit gates under
+    budget_rbop 0.07. Every launch counter is set to 0 just before the
+    path and read just after: K3 launches exactly 221 per CGMQ forward and
+    none in warmup and calibration, and no other kernel runs. Returns the
+    trained state, its recipe and the path's launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.calibration import (apply_act_calibration,
+                                              calibrate_activations)
+    from repro_torch.core.controller import (export_bits, guarantee_satisfied,
+                                             init_state)
+    from repro_torch.core.sites import (init_ranges_from_weights,
+                                        split_learnable_ranges)
+    from repro_torch.data.synthetic import lm_tokens
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tfm
+
+    dev = "cuda"
+    torch.cuda.reset_peak_memory_stats()
+    t_setup = time.perf_counter()
+    recipe = _train_recipe(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    state = steps_lib.init_train_state(recipe, SEED)
+    data = lm_tokens(2048, TRAIN_SEQ, cfg.vocab_size, seed=0, noise=0.05)
+
+    def batch(i):
+        idx = np.random.default_rng(i).integers(0, data.shape[0],
+                                                TRAIN_BATCH)
+        chunk = torch.from_numpy(data[idx]).to(dev)
+        return {"tokens": chunk[:, :-1], "targets": chunk[:, 1:]}
+
+    per_forward = sum(k3_shapes(cfg).values())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_setup
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    k3 = counters["fake_quant"]
+    fp_step = steps_lib.make_train_step(
+        dataclasses.replace(recipe, quant_enabled=False))
+    warm = []
+    for i in range(WARMUP_STEPS):
+        state, m = fp_step(state, batch(i))
+        warm.append(float(m["loss"]))
+    warm_launches = k3.launches
+    t0 = time.perf_counter()
+    calib = calibrate_activations(
+        lambda qc, b: tfm.forward_train(qc, state.params, b["tokens"], cfg),
+        (batch(WARMUP_STEPS + i) for i in range(CALIB_BATCHES)),
+        recipe.qcfg)
+    calib_s = time.perf_counter() - t0
+    calib_launches = k3.launches - warm_launches
+    state.betas, _ = split_learnable_ranges(apply_act_calibration(
+        init_ranges_from_weights(recipe.sites, recipe.qcfg, lambda n: None,
+                                 dev), calib))
+    # the warmup moved every gate too (no probe is reached with
+    # quantization off); the CGMQ stage starts them all at 16 bits
+    state.cgmq = init_state({k: torch.full_like(g, TRAIN_GATE0)
+                             for k, g in state.cgmq.gates.items()},
+                            recipe.sites)
+    step = steps_lib.make_train_step(recipe)
+    rows = []
+    prof = None
+    for i in range(CGMQ_STEPS):
+        b = batch(WARMUP_STEPS + CALIB_BATCHES + i)
+        before = k3.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == CGMQ_STEPS - 1:
+            prof, (state, m) = _profiled(lambda: step(state, b))
+        else:
+            state, m = step(state, b)
+        loss = float(m["loss"])         # the step's one host sync
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"loss": loss, "rbop": float(m["rbop"]),
+                     "sat": bool(m["sat"]), "ms": ms,
+                     "launches": k3.launches - before})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    sat_at = next((i + 1 for i, r in enumerate(rows) if r["sat"]), None)
+    print(f"[train] tinyllama-1.1b {cfg.n_layers} layers "
+          f"({cfg.param_count() / 1e9:.3f} B params), batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: setup {setup_s:.2f} s; warmup losses "
+          f"{[round(v, 4) for v in warm]}; calibration {calib_s:.2f} s, "
+          f"{len(calib)} activation ranges [{card}]")
+    for i, r in enumerate(rows):
+        print(f"[train] CGMQ step {i + 1}: loss {r['loss']:.4f} rbop "
+              f"{r['rbop'] * 100:.3f}% sat={r['sat']} K3 launches "
+              f"{r['launches']} {r['ms']:.1f} ms"
+              + (" (profiled)" if i == CGMQ_STEPS - 1 else ""))
+    steady = sorted(r["ms"] for r in rows[1:-1])
+    step_ms = steady[len(steady) // 2]
+    print(f"[train] ms per CGMQ step (median of steps 2-{CGMQ_STEPS - 1}, "
+          f"host clock ending in the step's sync) {step_ms:.1f}; peak "
+          f"device memory {peak / 2**30:.2f} GiB; sat first holds after "
+          f"step {sat_at} [{card}]")
+    bits = export_bits(state.cgmq)
+    for k in sorted(bits):
+        vals, counts = np.unique(bits[k], return_counts=True)
+        print(f"[train]   {k}: " + ", ".join(
+            f"{c} x {v}-bit" for v, c in zip(vals, counts)))
+    want = {name: 0 for name in counters}
+    want["fake_quant"] = per_forward * CGMQ_STEPS
+    print(f"[train] launches {launches} == expected {want}; warmup "
+          f"{warm_launches}, calibration {calib_launches}")
+    check(all(math.isfinite(v) for v in warm)
+          and all(math.isfinite(r["loss"]) for r in rows), "a loss is "
+          "not finite")
+    check(warm_launches == 0 and calib_launches == 0,
+          "K3 launched during warmup or calibration")
+    check(all(r["launches"] == per_forward for r in rows),
+          f"K3 launches per CGMQ step {[r['launches'] for r in rows]}, "
+          f"expected {per_forward}")
+    check(launches == want, f"launch counters {launches}, expected {want}")
+    check(bool(state.cgmq.best_valid) and sat_at is not None,
+          "the controller never certified the budget")
+    check(guarantee_satisfied(state.cgmq, recipe.sites, recipe.budget_bop),
+          "the exported gates break the BOP budget")
+    _train_profile(prof, step_ms, card)
+    return state, recipe, launches
+
+
+def _profiled(fn):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return prof, out
+
+
+def _train_profile(prof, step_ms: float, card: str):
+    """Device time of one CGMQ step by kind: K3, the fake-quant backward
+    (the kernels of the ATen ops under its record_function range), GEMMs,
+    the rest; the idle share is 1 - busy / the unprofiled step's wall."""
+    from torch.autograd import DeviceType
+
+    busy = k3_us = gemm_us = 0.0
+    others = {}
+    for e in prof.key_averages():
+        # kernels only: a record_function range also leaves a device-side
+        # annotation spanning its kernels, which is not device work
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0 \
+                or e.key == "fake_quant_backward":
+            continue
+        us = e.self_device_time_total
+        busy += us
+        if "fake_quant_kernel" in e.key:
+            k3_us += us
+        elif "gemm" in e.key.lower():
+            gemm_us += us
+        else:
+            others[e.key[:60]] = others.get(e.key[:60], 0.0) + us
+
+    def aten_under(ev):
+        return sum(c.name.startswith("aten::") + aten_under(c)
+                   for c in ev.cpu_children)
+
+    bwd = [ev for ev in prof.events() if ev.name == "fake_quant_backward"
+           and ev.device_type == DeviceType.CPU]
+    fq_bwd_us = sum(ev.device_time_total for ev in bwd)
+    fq_aten = sum(aten_under(ev) for ev in bwd)
+    if busy == 0:
+        print(f"[train-profile] device time not measured (the profiler saw "
+              f"no kernels) [{card}]")
+        return
+    busy_ms = busy / 1e3
+    print(f"[train-profile] one CGMQ step: device busy {busy_ms:.1f} ms of "
+          f"{step_ms:.1f} ms unprofiled wall, idle share "
+          f"{max(0.0, 1 - busy_ms / step_ms):.3f}; K3 {k3_us / 1e3:.2f} ms "
+          f"({k3_us / busy:.3f} of busy); fake-quant backward "
+          f"{fq_bwd_us / 1e3:.2f} ms ({len(bwd)} calls, {fq_aten} ATen "
+          f"ops, its kernels among the others); GEMMs {gemm_us / 1e3:.1f} "
+          f"ms; other kernels {sum(others.values()) / 1e3:.1f} ms [{card}]")
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
+    print("[train-profile] top other kernels: " + "; ".join(
+        f"{k} {v / 1e3:.2f} ms" for k, v in top))
+
+
+def phase_train_serve(cfg, state, recipe, card: str):
+    """Export the certified state (export_gates, the learned betas) to int
+    codes and serve 2 greedy requests of 16 tokens through ServingEngine:
+    tokens in the vocabulary, K1 launched for every site exported at 8
+    bits (K4 for 2 and 4 bits), K3 not at all."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.controller import export_gates
+    from repro_torch.serving.engine import SamplingParams, ServingEngine
+
+    qs = {"qcfg": recipe.qcfg, "gates": export_gates(state.cgmq),
+          "betas": state.betas, "signed": recipe.signed}
+    params = state.params
+    state.opt = state.probes = None
+    torch.cuda.empty_cache()
+    eng = ServingEngine(cfg, params, slots=2, max_seq=64, quant_state=qs,
+                        block_size=BLOCK)
+    classes = {}
+    for e in eng.export_ledger.entries.values():
+        key = f"int{e['storage_bits']}" if "storage_bits" in e \
+            else f"fp weights ({e['reason']})"
+        classes[key] = classes.get(key, 0) + 1
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (12, 20)]
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    results = eng.generate(prompts, SamplingParams(max_new=16))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    st = eng.stats
+    forwards = st["prefill_forwards"] + st["decode_ticks"]
+    per_layer = {8: 0, "packed": 0}
+    for key, q in eng.qweights.items():
+        n = 1 if key == "head.w" else cfg.n_layers
+        per_layer["packed" if q.packed else 8] += n
+    want = {"quant_matmul": per_layer[8] * forwards,
+            "quant_matmul_packed": per_layer["packed"] * forwards,
+            "paged_attention": cfg.n_layers * st["decode_ticks"],
+            "paged_attention_quant": 0, "fake_quant": 0}
+    print(f"[train->serve] export of the certified state: sites by storage "
+          f"{classes}; 2 greedy requests x 16 tokens: "
+          f"{[r.tokens for r in results]} [{card}]")
+    print(f"[train->serve] launches {launches} == expected {want}")
+    for r in results:
+        check(len(r.tokens) == 16 and all(0 <= t < cfg.vocab_size
+                                          for t in r.tokens),
+              f"request {r.rid}: {r.tokens}")
+    check(launches == want and launches["quant_matmul"]
+          + launches["quant_matmul_packed"] > 0,
+          f"serve launches {launches}, expected {want}")
+
+
+def kernels_line(cfg, k1, k2, k4, k2b, k3, launches, mixed_launches,
+                 train_launches):
     """One entry per kernel. quant_matmul: one decode step's K1 work on the
     uniform path (its 155 GEMMs at M = slots, each shape times its count
     per step); quant_matmul_packed: one decode step's K4 work on the mixed
     path (its 111 packed GEMMs); paged_attention / _quant: one launch at the
-    decode shape (K2b over the mixed path's int4 pool). ``launches`` from
-    each kernel's own serve run."""
+    decode shape (K2b over the mixed path's int4 pool); fake_quant: one
+    CGMQ forward's K3 work (its 221 launches, each shape times its count).
+    ``launches`` from each kernel's own path: serve, mixed serve, train."""
     per_step = {(cfg.d_model, cfg.n_heads * cfg.head_dim): 2 * cfg.n_layers,
                 (cfg.d_model, cfg.n_kv_heads * cfg.head_dim):
                     2 * cfg.n_layers,
@@ -841,6 +1406,9 @@ def kernels_line(cfg, k1, k2, k4, k2b, launches, mixed_launches):
     k4_bound, k4_by = bound_ms(sum(r["bytes"] * c for r, c in rows4),
                                sum(r["flops"] * c for r, c in rows4))
     k2a, k2b4 = k2[0], k2b[MIXED_KV]
+    rows3 = [(k3[key], c) for key, c in k3_shapes(cfg).items()]
+    k3_bound, k3_by = bound_ms(sum(r["bytes"] * c for r, c in rows3),
+                               sum(r["flops"] * c for r, c in rows3))
     return {"kernels": [
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
@@ -878,6 +1446,15 @@ def kernels_line(cfg, k1, k2, k4, k2b, launches, mixed_launches):
          "ms": k2b4["ms"], "plain_ms": k2b4["plain_ms"],
          "bound_ms": k2b4["bound_ms"], "bound_by": k2b4["bound_by"],
          "library_ms": k2b4["library_ms"]},
+        {"name": "fake_quant", "route": "cuda",
+         "source": "src/repro_torch/csrc/fake_quant.cu",
+         "replaces": "src/repro/kernels/fake_quant/fake_quant.py:69",
+         "launches": train_launches["fake_quant"],
+         "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
+         "ms": sum(r["ms"] * c for r, c in rows3),
+         "plain_ms": sum(r["plain_ms"] * c for r, c in rows3),
+         "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": sum(r["library_ms"] * c for r, c in rows3)},
     ]}
 
 
@@ -899,7 +1476,7 @@ def main() -> int:
     cfg = get_config("tinyllama-1.1b")
     prompts = _prompts(cfg.vocab_size)
     m_prefill = max(_bucket(len(p)) for p in prompts)
-    k1, k2, k4, k2b = phase_kernels(cfg, m_prefill, card)
+    k1, k2, k4, k2b, k3 = phase_kernels(cfg, m_prefill, card)
     phase_parity(cfg, card)
     for kv_dtype in ("int8", "int4"):
         phase_parity(cfg, card, state="mixed", kv_dtype=kv_dtype)
@@ -917,9 +1494,15 @@ def main() -> int:
           f"{mixed_export['codes']} vs {export['codes']} B) [{card}]")
     check(total < uniform_total, "the mixed export is not smaller")
     phase_profile(eng, prompts, card)
+    del eng, params
+    torch.cuda.empty_cache()
+    phase_train_parity(cfg, card)
+    state, recipe, train_launches = phase_train(cfg, card)
+    phase_train_serve(cfg, state, recipe, card)
+    del state
     print(f"[done] {time.perf_counter() - t_start:.1f} s [{card}]")
-    print(json.dumps(kernels_line(cfg, k1, k2, k4, k2b, launches,
-                                  mixed_launches)))
+    print(json.dumps(kernels_line(cfg, k1, k2, k4, k2b, k3, launches,
+                                  mixed_launches, train_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""Hand ``repro``'s parameters and quant state to the port, through numpy.
+"""Hand ``repro``'s parameters, quant state and train state to the port,
+and the port's tensors back, through numpy.
 
 The caller does the JAX-to-numpy step (``jax.tree.map(np.asarray,
 params)``); this module never imports JAX. Parameters keep ``repro``'s
@@ -7,15 +8,24 @@ layout, so the conversion is leaf by leaf.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.core.controller import CGMQState
 from repro_torch.core.sites import QuantConfig
 from repro_torch.device import resolve_device
+from repro_torch.optim.adam import AdamState
+from repro_torch.train.state import TrainState
 
 
 def _to_tensor(a, dev):
-    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bf16: widen exactly
+        return torch.from_numpy(a.astype(np.float32)).to(
+            dev, torch.bfloat16)
+    return torch.from_numpy(a).to(dev)
 
 
 def params_from_numpy(tree, device=None):
@@ -41,3 +51,50 @@ def quant_state_from_numpy(gates: dict, betas: dict, signed: dict,
             "gates": {k: _to_tensor(v, dev) for k, v in gates.items()},
             "betas": {k: _to_tensor(v, dev) for k, v in betas.items()},
             "signed": {k: bool(v) for k, v in signed.items()}}
+
+
+def train_state_from_numpy(state, device=None) -> TrainState:
+    """``repro``'s ``TrainState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) -> the port's: params, betas,
+    the Adam moments and step, the controller state (gates, sat, bop,
+    step, best_gates, best_valid), the probes and the step. The PRNG key
+    becomes an int64 tensor of its words. Read by attribute, so the port
+    needs none of ``repro``'s classes."""
+    dev = resolve_device(device)
+
+    def conv(tree):
+        return params_from_numpy(tree, device=dev)
+
+    c = state.cgmq
+    return TrainState(
+        params=conv(state.params), betas=conv(state.betas),
+        opt=AdamState(step=conv(state.opt.step), m=conv(state.opt.m),
+                      v=conv(state.opt.v)),
+        cgmq=CGMQState(gates=conv(c.gates), sat=conv(c.sat),
+                       bop=conv(c.bop), step=conv(c.step),
+                       best_gates=conv(c.best_gates),
+                       best_valid=conv(c.best_valid)),
+        probes=conv(state.probes),
+        rng=None if state.rng is None else _to_tensor(
+            np.asarray(state.rng).astype(np.int64), dev),
+        step=None if state.step is None else conv(state.step))
+
+
+def tree_to_numpy(tree):
+    """Tensors -> numpy arrays through dicts, lists, tuples (named ones
+    too) and dataclasses; bf16 comes back as float32 (numpy has no
+    bfloat16, and the widening is exact)."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_to_numpy(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to_numpy(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v) for v in tree)
+    return tree

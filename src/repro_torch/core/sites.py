@@ -1,19 +1,37 @@
 """Quantization sites and the ``QuantContext`` threaded through forwards.
 
-Counterpart of ``repro/core/sites.py`` for the two modes serving needs:
+Counterpart of ``repro/core/sites.py`` in four of its modes:
 
-  off    -- identity (full-precision serving).
-  serve  -- deployment forward. Carries no gates: it runs off ``specs``
-            (site -> ``quant.QuantSpec``, the frozen bits/range/sign) and
-            ``qweights`` (site -> ``quant.QuantizedTensor``, the int-code
-            export). Matmul sites with an export go through the fused-dequant
-            GEMM (``models.layers.qmatmul`` asks ``serving_weight``);
-            activations quantize at the spec's bits.
+  off        -- identity (fp32 warmup, full-precision serving).
+  calibrate  -- fp32 forward that records each output activation's range
+                statistics (max, per-channel max, min, mean |a|) in
+                ``act_stats`` (``core.calibration`` runs it).
+  train      -- fake quantization from gates and learnable ranges, through
+                ``gates.gated_fake_quant`` (K3 on the card) or the
+                paper-literal residual chain (``impl="residual"``); records
+                the per-site statistics the CGMQ directions need
+                (``weight_stats``: group-mean |w|; ``act_stats``: |mean a|,
+                kept in a's dtype) and adds the zero "probe" parameters
+                whose gradients are the group-summed operand gradients.
+  serve      -- deployment forward. Carries no gates: it runs off ``specs``
+                (site -> ``quant.QuantSpec``, the frozen bits/range/sign) and
+                ``qweights`` (site -> ``quant.QuantizedTensor``, the int-code
+                export). Matmul sites with an export go through the fused-
+                dequant GEMM (``models.layers.qmatmul`` asks
+                ``serving_weight``); activations quantize at the spec's bits.
 
-The collect, calibrate, train and export modes come with the training
-slice. ``repro`` discovers sites with a collect-mode trace; the port lists
-them from the config instead (``models.transformer.collect_sites``), and the
-state initialisers below take that listing.
+``repro`` discovers sites with a collect-mode trace and captures export
+weights with an export-mode one; the port lists both from the config
+(``models.transformer.collect_sites`` / ``site_weights``), and the state
+initialisers below take that listing. Stacked per-layer state is sliced
+into child contexts by ``models.transformer``; a child's stats come back
+stacked to ``(R, ...)`` under ``repro``'s keys.
+
+The probe trick: ``a + probe`` with ``probe = 0`` of the gate-group shape
+makes ``dL/dprobe`` the group-summed ``dL/da``. A probe that the forward
+never reaches (the ``.a`` probes of attn_q/k/v and mlp_gate, whose outputs
+are not fake-quantized, as in ``repro``) gets no gradient; the directions
+take that as zero, which is what ``repro``'s zero gradient is.
 """
 
 from __future__ import annotations
@@ -24,11 +42,14 @@ from typing import Any
 
 import torch
 
-from .quantizer import quantize
+from . import gates as G
+from .quantizer import fake_quant, quantize
 
 PER_TENSOR = "per_tensor"    # one gate per weight tensor / activation tensor
 PER_CHANNEL = "per_channel"  # one gate per output channel
 PER_WEIGHT = "per_weight"    # one gate per element
+
+MODES = ("off", "calibrate", "train", "serve")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,12 +67,18 @@ class SiteInfo:
     w_signed: bool = True
     a_signed: bool = True
 
+    @property
+    def macs_per_token(self) -> float:
+        """MACs per token for ONE stacked copy of this site."""
+        return float(self.fan_in) * self.out_features * self.positions \
+            * self.active_frac
+
 
 @dataclasses.dataclass
 class QuantConfig:
     enabled: bool = True
     granularity: str = PER_TENSOR
-    impl: str = "direct"
+    impl: str = "direct"            # 'direct' (telescoped) | 'residual'
     input_bits: int = 8             # fixed input quantization (paper §4.2)
     quantize_acts: bool = True
     act_granularity: str | None = None   # defaults to `granularity`
@@ -77,31 +104,45 @@ def _group_shape(granularity: str, full_shape, out_features: int):
 
 
 class QuantContext:
-    """Threaded through model forwards in mode ``"off"`` or ``"serve"``."""
+    """Threaded through model forwards in one of ``MODES``."""
 
     def __init__(self, mode: str = "off", cfg: QuantConfig | None = None,
                  qweights: dict[str, Any] | None = None,
-                 specs: dict[str, Any] | None = None):
-        if mode not in ("off", "serve"):
+                 specs: dict[str, Any] | None = None, *,
+                 gates: dict[str, torch.Tensor] | None = None,
+                 ranges: dict[str, Any] | None = None,
+                 probes: dict[str, torch.Tensor] | None = None):
+        if mode not in MODES:
             raise NotImplementedError(
-                f"QuantContext mode {mode!r} is ported with ROADMAP queue 1 "
-                f"item 2 (CGMQ core); this slice has 'off' and 'serve'")
+                f"QuantContext mode {mode!r} has no port: sites are listed "
+                f"from the config (models.transformer.collect_sites) and "
+                f"export weights taken by transformer.site_weights")
         self.mode = mode
         self.cfg = cfg or QuantConfig()
         self.qweights = qweights or {}
         self.specs = specs or {}
+        self.gates = gates or {}
+        self.ranges = ranges or {}
+        self.probes = probes or {}
+        # outputs of a calibrate or train forward
+        self.act_stats: dict[str, dict[str, torch.Tensor]] = {}
+        self.weight_stats: dict[str, torch.Tensor] = {}
         self._prefix: list[str] = []
-        # Per-layer child contexts of scan-stacked state, built on first use
-        # by ``models.transformer`` and reused by every later forward.
+        # Per-layer child contexts of scan-stacked serve state, built on
+        # first use by ``models.transformer`` and reused by later forwards.
         self.slices: dict[Any, "QuantContext"] = {}
 
-    def child(self, qweights=None, specs=None) -> "QuantContext":
+    def child(self, qweights=None, specs=None, gates=None, ranges=None,
+              probes=None) -> "QuantContext":
         """Sub-context for one layer of a stacked block, with per-layer
-        slices of the serve state merged over this context's."""
+        slices of the state merged over this context's."""
         c = QuantContext(
             mode=self.mode, cfg=self.cfg,
             qweights={**self.qweights, **(qweights or {})},
-            specs={**self.specs, **(specs or {})})
+            specs={**self.specs, **(specs or {})},
+            gates={**self.gates, **(gates or {})},
+            ranges={**self.ranges, **(ranges or {})},
+            probes={**self.probes, **(probes or {})})
         c._prefix = list(self._prefix)
         return c
 
@@ -124,21 +165,52 @@ class QuantContext:
         return self.qweights.get(self._full(name) + ".w")
 
     def weight(self, name: str, w: torch.Tensor) -> torch.Tensor:
-        if self.mode == "off" or not self.cfg.enabled:
+        if self.mode in ("off", "calibrate") or not self.cfg.enabled:
             return w
-        # serve mode reaches here only for sites without an int-code export
-        # (``qmatmul`` takes the exported ones): fake-quant at the spec bits
-        spec = self.specs[self._full(name) + ".w"]
-        return quantize(w, spec.bits, spec.beta, spec.signed)
+        key = self._full(name) + ".w"
+        if self.mode == "serve":
+            # reached only for sites without an int-code export (``qmatmul``
+            # takes the exported ones): fake-quant at the spec bits
+            spec = self.specs[key]
+            return quantize(w, spec.bits, spec.beta, spec.signed)
+        g = self.gates[key]
+        rng = self.ranges[key]
+        # group-reduced |w| for dir_2/dir_3 (paper §2.3)
+        self.weight_stats[key] = self._w_group_stat(w, g)
+        if key in self.probes:
+            # the probe's gradient is the group-summed dL/dw through the STE
+            w = w + self._expand_w_probe(self.probes[key], w).to(w.dtype)
+        return self._fq(w, g, rng["beta"], rng["signed"])
 
     def act(self, name: str, a: torch.Tensor) -> torch.Tensor:
-        """Quantize an output activation at the site's spec bits."""
+        """Quantize an output activation; records stats per mode."""
         if self.mode == "off" or not self.cfg.enabled \
                 or not self.cfg.quantize_acts:
             return a
-        spec = self.specs[self._full(name) + ".a"]
-        return quantize(a, self._expand_act_gate(spec.bits, a),
-                        self._expand_act_gate(spec.beta, a), spec.signed)
+        key = self._full(name) + ".a"
+        if self.mode == "serve":
+            spec = self.specs[key]
+            return quantize(a, self._expand_act_gate(spec.bits, a),
+                            self._expand_act_gate(spec.beta, a), spec.signed)
+        if self.mode == "calibrate":
+            red = tuple(range(a.ndim - 1))
+            self.act_stats[key] = {
+                "max": torch.amax(torch.abs(a)),
+                "max_per_ch": torch.amax(torch.abs(a), dim=red),
+                "min": torch.amin(a),
+                "mean_abs": torch.mean(torch.abs(a)),
+            }
+            return a
+        g = self.gates[key]
+        rng = self.ranges[key]
+        # |mean over batch of a|, reduced to the gate-group shape
+        self.act_stats[key] = {"mean_abs": self._act_group_stat(a, g)}
+        if key in self.probes:
+            # broadcast, then cast: the probe's gradient is an fp32 sum of
+            # the bf16 activation gradients, as in repro
+            a = a + self.probes[key].expand(a.shape).to(a.dtype)
+        return self._fq(a, self._expand_act_gate(g, a),
+                        self._expand_act_gate(rng["beta"], a), rng["signed"])
 
     def input_spec(self, name: str):
         """Activation spec for this matmul's INPUT, or None (serve only)."""
@@ -149,10 +221,16 @@ class QuantContext:
     def input(self, x: torch.Tensor) -> torch.Tensor:
         """Fixed-width input quantization (paper: 8-bit sensor data), with
         the range taken from the batch itself: ``beta = max|x|``."""
-        if self.mode != "serve" or not self.cfg.enabled:
+        if self.mode not in ("train", "serve") or not self.cfg.enabled:
             return x
         beta = torch.clamp_min(x.detach().abs().max().to(torch.float32), 1e-8)
-        return quantize(x, float(self.cfg.input_bits), beta, True)
+        return fake_quant(x, float(self.cfg.input_bits), beta, True)
+
+    # ---- helpers ------------------------------------------------------------
+    def _fq(self, x, g, beta, signed):
+        if self.cfg.impl == "residual":
+            return G.residual_fake_quant(x, g, beta, signed)
+        return G.gated_fake_quant(x, g, beta, signed)
 
     @staticmethod
     def _expand_act_gate(g, a: torch.Tensor):
@@ -162,6 +240,38 @@ class QuantContext:
         if g.ndim == 0:
             return g
         return g.reshape((1,) * (a.ndim - g.ndim) + tuple(g.shape))
+
+    @staticmethod
+    def _act_group_stat(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """|mean over batch (and non-group dims) of a|, shaped like the
+        gate, in a's dtype."""
+        a = a.detach()
+        if g.ndim == 0:
+            return torch.abs(torch.mean(a))
+        return torch.abs(torch.mean(a, dim=tuple(range(a.ndim - g.ndim))))
+
+    @staticmethod
+    def _w_group_stat(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """Group-reduced |w| (mean within group), shaped like the gate."""
+        w = w.detach()
+        if g.ndim == 0:
+            return torch.mean(torch.abs(w))
+        if g.shape == w.shape:
+            return torch.abs(w)
+        # per-channel (last axis): reduce every axis that does not line up
+        # with the trailing gate shape
+        extra = w.ndim - g.ndim
+        red = tuple(i for i in range(w.ndim) if not (
+            i >= extra and w.shape[i] == g.shape[i - extra]))
+        return torch.mean(torch.abs(w), dim=red)
+
+    @staticmethod
+    def _expand_w_probe(p: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Broadcast a probe of group shape against weight ``w`` (trailing
+        dims aligned, channel-last)."""
+        if p.ndim == 0 or p.shape == w.shape:
+            return p
+        return p.reshape((1,) * (w.ndim - p.ndim) + tuple(p.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -231,8 +341,30 @@ def init_ranges_from_weights(sites: dict[str, SiteInfo], cfg: QuantConfig,
     return ranges
 
 
+def init_probes(sites: dict[str, SiteInfo], cfg: QuantConfig,
+                device) -> dict[str, torch.Tensor]:
+    """Zero probe params added to quantized activations (gradient taps)."""
+    out = {}
+    for s in sites.values():
+        if s.act_quantized:
+            ashape = _group_shape(cfg.act_granularity, (s.out_features,),
+                                  s.out_features)
+            out[s.name + ".a"] = torch.zeros(_stacked(ashape, s.stack),
+                                             dtype=torch.float32,
+                                             device=device)
+    return out
+
+
 def split_learnable_ranges(ranges: dict[str, Any]):
     """Split into (betas dict, static signed map)."""
     betas = {k: v["beta"] for k, v in ranges.items()}
     signed = {k: bool(v["signed"]) for k, v in ranges.items()}
     return betas, signed
+
+
+def merge_ranges(betas: dict[str, torch.Tensor], signed: dict[str, bool]):
+    return {k: {"beta": betas[k], "signed": signed[k]} for k in betas}
+
+
+def total_gate_count(gts: dict[str, torch.Tensor]) -> int:
+    return int(sum(v.numel() for v in gts.values()))

@@ -12,6 +12,7 @@ state for stacked sites is stacked the same way and sliced per layer
 Entry points:
   init_params(cfg, seed, device=...)
   collect_sites(cfg) / site_weights(params, cfg)
+  forward_train(qc, params, batch, cfg)            -> logits
   prefill_slot(qc, params, tokens, plen, cache, slot, cfg, block_table=...)
                                                    -> logits, cache
   decode_step(qc, params, cache, tokens, cfg, ...) -> logits, cache
@@ -155,23 +156,46 @@ def _tree_index(tree, r: int):
 
 def _layer_qc(qc: QuantContext, prefix: str, r: int, stacked: bool):
     """The child context of layer ``r`` of pattern entry ``prefix``: its
-    slice of the stacked serve state over the parent's. Built once per
-    (prefix, r) and kept on ``qc``."""
+    slices of the stacked state over the parent's. Gates, ranges and probes
+    are sliced as views, so gradients reach the stacked leaves. Frozen
+    serve state is sliced once per (prefix, r) and kept on ``qc``; train
+    and calibrate contexts are sliced anew on every forward."""
     key = (prefix, r)
     sub = qc.slices.get(key)
-    if sub is None:
-        mine = prefix + "/"
+    if sub is not None:
+        return sub
+    mine = prefix + "/"
 
-        def sl(v):
-            return v.layer(r) if stacked else v
+    def pick(d, sl):
+        return {k: sl(v) for k, v in d.items() if k.startswith(mine)}
 
-        sub = qc.child(
-            qweights={k: sl(v) for k, v in qc.qweights.items()
-                      if k.startswith(mine)},
-            specs={k: sl(v) for k, v in qc.specs.items()
-                   if k.startswith(mine)})
+    def row(t):
+        return t[r] if stacked else t
+
+    def layer(v):
+        return v.layer(r) if stacked else v
+
+    sub = qc.child(
+        qweights=pick(qc.qweights, layer), specs=pick(qc.specs, layer),
+        gates=pick(qc.gates, row), probes=pick(qc.probes, row),
+        ranges=pick(qc.ranges, lambda v: {"beta": row(v["beta"]),
+                                          "signed": v["signed"]}))
+    if qc.mode == "serve":
         qc.slices[key] = sub
     return sub
+
+
+def _absorb_stats(qc: QuantContext, subs: list, stacked: bool):
+    """Per-layer stats of ``subs`` back into ``qc``, stacked to (R, ...)
+    for a stacked pattern entry (``repro``'s scan outputs)."""
+    def join(vals):
+        return torch.stack(vals) if stacked else vals[0]
+
+    for key, st in subs[0].act_stats.items():
+        qc.act_stats[key] = {s: join([c.act_stats[key][s] for c in subs])
+                             for s in st}
+    for key in subs[0].weight_stats:
+        qc.weight_stats[key] = join([c.weight_stats[key] for c in subs])
 
 
 def _layers(qc: QuantContext, params, cache, cfg: ModelConfig):
@@ -247,6 +271,40 @@ def _require_paged(block_table):
         raise NotImplementedError(
             "the contiguous (ring) KV layout is ported with ROADMAP queue 1 "
             "item 10; pass a block_table (paged layout)")
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def forward_train(qc: QuantContext, params, batch, cfg: ModelConfig):
+    """Full-sequence forward over ``batch`` ((B, S) int tokens) ->
+    logits (B, S, V) fp32.
+
+    In train mode every weight and output activation is fake-quantized
+    (``qc.weight``/``qc.act``), and ``qc.act_stats``/``qc.weight_stats``
+    come back stacked to (R, ...) under ``repro``'s keys; in calibrate
+    mode ``qc.act_stats`` holds the range statistics. Where ``repro`` scans
+    (and rematerialises) the layers, the port loops over them and keeps
+    their activations for the backward.
+    """
+    check_supported(cfg)
+    h = _embed(qc, params, batch, cfg)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    reps = cfg.pattern_repeats
+    for pi, kind in enumerate(cfg.block_pattern):
+        prefix = f"p{pi}_{kind}"
+        subs = []
+        for r in range(reps):
+            sub = _layer_qc(qc, prefix, r, reps > 1)
+            with sub.scope(prefix):
+                h, _ = _apply_block_full(
+                    sub, _tree_index(params["blocks"][pi], r), h, cfg,
+                    positions=positions)
+            subs.append(sub)
+        _absorb_stats(qc, subs, reps > 1)
+    return _head(qc, params, h, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version at small and ragged shapes (K4 also bit for bit against K1 on the
-unpacked codes), and the serving engine on the card, uniform int8 and
-mixed 2/4/8-bit over an int4 KV pool.
+unpacked codes, K3 bit for bit against its plain version), the serving
+engine on the card, uniform int8 and mixed 2/4/8-bit over an int4 KV pool,
+and CGMQ train steps on the card against the same steps on the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it also runs where only PyTorch is installed (the
@@ -14,7 +15,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import bridge
 from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.controller import init_state
+from repro_torch.core.gates import gate_to_bits
+from repro_torch.data.synthetic import lm_tokens
+from repro_torch.kernels.fake_quant.fake_quant import fake_quant
+from repro_torch.kernels.fake_quant.ref import fake_quant_ref
+from repro_torch.launch import steps as train_steps
+from repro_torch.optim.adam import tree_leaves
 from repro_torch.kernels.paged_attention.paged_attention import (
     paged_attention, paged_attention_quant)
 from repro_torch.kernels.paged_attention.ref import (
@@ -211,6 +221,78 @@ def test_mixed_engine_over_int4_kv_on_card(cuda):
     assert quant_matmul_packed.launches == (5 * cfg.n_layers + 1) * forwards
     assert paged_attention_quant.launches == cfg.n_layers * st["decode_ticks"]
     assert paged_attention.launches == 0
+
+
+@pytest.mark.parametrize("mn", [(1, 1), (3, 101), (64, 257), (300, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("signed", [True, False])
+def test_fake_quant_kernel_bit_equal_to_plain(cuda, mn, dtype, signed):
+    """K3 against its plain version bit for bit: per-channel gates over
+    every level (and below the 0.5 clamp), then one scalar gate."""
+    m, n = mn
+    g = torch.Generator(device=cuda).manual_seed(m * n + signed)
+    x = (torch.randn((m, n), generator=g, device=cuda) * 1.5).to(dtype)
+    levels = torch.tensor([0.3, 0.8, 1.5, 2.5, 3.05, 3.5, 5.5], device=cuda)
+    gate = levels[torch.arange(n, device=cuda) % len(levels)]
+    beta = torch.rand((n,), generator=g, device=cuda) * 1.7 + 0.3
+    before = fake_quant.launches
+    for gt in (gate, torch.full_like(gate, 2.5)):
+        got = fake_quant(x, gt, beta, signed)
+        want = fake_quant_ref(x, gt, beta, signed)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert fake_quant.launches == before + 2
+
+
+# the tolerances of tests/test_torch_train.py
+LOSS_RTOL, GRAD_RTOL = 1e-3, 2e-2
+
+
+@pytest.mark.parametrize("which", ["init", "mixed_weights"])
+def test_train_steps_on_card_match_cpu(cuda, which):
+    """Two CGMQ steps of the smoke config on the card (K3) and on the CPU
+    (plain versions) from the same state: at init gates (32-bit, K3 passes
+    through) and with the weight gates cycled over 2/4/8/16 bits. The first
+    step's loss and gradients within test_torch_train.py's tolerances;
+    Sat, BOP and the gates' bit-widths equal after each step; K3 launched
+    once per weight site and per quantized activation per forward."""
+    cfg = get_smoke_config("tinyllama-1.1b")
+    recipe = train_steps.make_recipe(
+        cfg, ShapeConfig("train", 16, 2, "train"), check_every=1)
+    cpu = train_steps.init_train_state(recipe, 0, device="cpu")
+    if which == "mixed_weights":
+        levels = (0.8, 1.5, 2.5, 3.5)
+        gates = {k: torch.full_like(v, levels[i % 4]) if k.endswith(".w")
+                 else v for i, (k, v) in enumerate(sorted(
+                     cpu.cgmq.gates.items()))}
+        cpu.cgmq = init_state(gates, recipe.sites)
+    card = bridge.train_state_from_numpy(bridge.tree_to_numpy(cpu),
+                                         device=cuda)
+    data = torch.from_numpy(lm_tokens(4, 16, cfg.vocab_size, seed=0,
+                                      noise=0.05))
+    batches = [{"tokens": data[i:i + 2, :-1], "targets": data[i:i + 2, 1:]}
+               for i in (0, 2)]
+    per_forward = 7 * cfg.n_layers + 1 + 3 * cfg.n_layers
+    fake_quant.launches = 0
+    lc, (gc, _, _), _, _ = train_steps.loss_and_grads(recipe, cpu,
+                                                      batches[0])
+    lg, (gg, _, _), _, _ = train_steps.loss_and_grads(
+        recipe, card, {k: v.to(cuda) for k, v in batches[0].items()})
+    assert fake_quant.launches == per_forward
+    assert abs(float(lg) - float(lc)) <= LOSS_RTOL * abs(float(lc))
+    for a, b in zip(tree_leaves(gc), tree_leaves(gg)):
+        assert float((b.cpu() - a).norm()) <= GRAD_RTOL * float(a.norm())
+    step = train_steps.make_train_step(recipe)
+    for batch in batches:
+        cpu, mc = step(cpu, batch)
+        card, mg = step(card, {k: v.to(cuda) for k, v in batch.items()})
+        assert bool(mc["sat"]) == bool(mg["sat"])
+        assert float(mc["bop"]) == float(mg["bop"])
+        assert np.isfinite(float(mg["loss"]))
+        for k, v in cpu.cgmq.gates.items():
+            assert torch.equal(gate_to_bits(card.cgmq.gates[k]).cpu(),
+                               gate_to_bits(v))
+    assert fake_quant.launches == 3 * per_forward
 
 
 def _to(tree, dev):

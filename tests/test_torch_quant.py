@@ -216,8 +216,15 @@ def test_serve_mode_sites_bit_equal(smoke):
 
 
 def test_unported_quant_options_raise(smoke):
-    with pytest.raises(NotImplementedError, match="item 2"):
-        QuantContext(mode="train")
+    # train and calibrate are ported; collect and export are replaced by
+    # listing (transformer.collect_sites / site_weights)
+    with pytest.raises(NotImplementedError, match="collect_sites"):
+        QuantContext(mode="collect")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        QuantConfig(quantize_inputs=True)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        tg.gated_fake_quant(torch.zeros((3, 4)), torch.ones((3, 4)),
+                            torch.ones(()), True)
 
 
 def test_mixed_state_and_packed_export_bit_equal(smoke):

@@ -35,8 +35,11 @@ from repro.serving.engine import export_int_model as j_export_int_model
 from repro.serving.engine import make_mixed_quant_state as j_mixed_state
 from repro_torch import bridge
 from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.sites import QuantContext
 from repro_torch.device import resolve_device
+from repro_torch.launch import steps as train_steps
+from repro_torch.launch import train as train_launcher
 from repro_torch.models import transformer as ttfm
 from repro_torch.quant.kv import KVQuantSpec, dequantize_kv, spec_from_cache
 from repro_torch.quant.spec import specs_from_state
@@ -428,6 +431,15 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(smoke):
         export_int_model(tparams, tcfg, tqs)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(tcfg, tparams, slots=2, max_seq=32)
+    recipe = train_steps.make_recipe(tcfg, ShapeConfig("train", 8, 2,
+                                                       "train"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_steps.init_train_state(recipe, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_launcher.main(["--arch", "tinyllama-1.1b-smoke", "--steps",
+                             "1"])
+    assert train_steps.init_train_state(recipe, 0, device="cpu") \
+        .params["embed"].device.type == "cpu"
     with pytest.raises(ValueError, match="cuda' or 'cpu"):
         resolve_device("meta")
     # the port's own init on the CPU, served: params in repro's layout
