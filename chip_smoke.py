@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero:
                  decode_step on the CPU (plain versions) and on the card
                  (kernels), logits compared at a stated tolerance: the
                  uniform int8 state over a bf16 pool, then the mixed
-                 2/4/8-bit state over int8 and int4 pools.
+                 2/4/8-bit state over int8 and int4 pools; then
+                 [parity-window]: the uniform state under WindowSpec(12, 1)
+                 (40-token prompt, eviction before the decode) over bf16
+                 and int8 pools.
   5. serve    -- full tinyllama-1.1b (22 layers, random seeded weights, int8
                  per-channel export, paged bf16 KV) through ServingEngine:
                  12 greedy requests on 8 slots; launch counters must equal
@@ -29,6 +32,13 @@ Phases, in order; any failure exits non-zero:
                  (2- and 4-bit sites packed) over an int4 KV pool, with its
                  exact launch counts, the export's and the KV cache's device
                  bytes; then its own profile.
+ 7b. serve-window -- long-context serving (slice 4): 12 greedy requests of
+                 384-896 prompt tokens on 8 slots, max_seq 1024, under
+                 WindowSpec(256, sink_blocks=2), uniform int8 over a bf16
+                 pool: K2c exactly n_layers launches per tick and K2a/K2b
+                 none, one sync per tick, at most max_live_blocks(256, 2, 8)
+                 = 35 table entries per live slot after every tick, no block
+                 leaked; then its profile.
   8. train-parity -- one CGMQ step of a 2-layer full-width model on the CPU
                  (plain versions) and on the card (K3), same state: loss,
                  gradient norms per leaf and new gates, each against a
@@ -44,7 +54,11 @@ Phases, in order; any failure exits non-zero:
                  (2 greedy requests) through ServingEngine on the card.
 
 The kernels phase also holds K3 (fused gated fake-quant) bit for bit
-against its plain version at the training step's shapes.
+against its plain version at the training step's shapes, and K2c
+(windowed paged attention) against its plain version on bf16, fp32, int8
+and int4 pools under binding windows with and without sinks, sinks that
+cover a block in part, and a window that does not bind (then bit for bit
+against K2a/K2b).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Imports torch and the port
@@ -68,6 +82,16 @@ SEED = 0
 SLOTS, MAX_SEQ, BLOCK = 8, 512, 8
 MIXED_KV = "int4"
 N_REQUESTS, MAX_NEW, PROMPT_LO, PROMPT_HI = 12, 32, 16, 384
+
+# serve-window (slice 4): long prompts under a sliding window with sinks
+WIN_MAX_SEQ, WIN_WINDOW, WIN_SINK_BLOCKS = 1024, 256, 2
+WIN_PROMPT_LO, WIN_PROMPT_HI = 384, 896
+# K2c kernel cases (window, sinks in tokens): binding with sinks, binding
+# without, sinks covering a block in part, not binding; timed at the first
+K2C_CASES = ((WIN_WINDOW, WIN_SINK_BLOCKS * BLOCK), (WIN_WINDOW, 0),
+             (WIN_WINDOW, 12), (4096, 0))
+# [parity-window]: a window that binds on a 40-token prompt, one sink block
+PARITY_WINDOW, PARITY_WINDOW_SINK_BLOCKS, PARITY_WINDOW_PLEN = 12, 1, 40
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 FLOP/s outside the
 # tensor cores. Both kernels compute in fp32 on the CUDA cores.
@@ -233,9 +257,9 @@ def phase_build():
             print(f"[build]   {ln}")
 
 
-def _prompts(vocab: int):
+def _prompts(vocab: int, lo: int = PROMPT_LO, hi: int = PROMPT_HI):
     rng = __import__("numpy").random.default_rng(SEED)
-    lens = rng.integers(PROMPT_LO, PROMPT_HI + 1, N_REQUESTS)
+    lens = rng.integers(lo, hi + 1, N_REQUESTS)
     return [rng.integers(0, vocab, (int(n),)) for n in lens]
 
 
@@ -530,6 +554,166 @@ def k2b_case(kv_dtype: str, gen, card: str, max_pos: int):
     return res
 
 
+def _window_table(max_pos: int, window: int | None, sinks: int):
+    """Ragged positions (the first at max_pos - 1, the second below the
+    window, where only the clamp to the sink blocks keeps fl >= 0) over
+    WIN_MAX_SEQ-token tables, with the blocks wholly outside the sinks and
+    the window evicted (-1), as the serve-window engine leaves them; with
+    ``window`` None nothing is evicted. Every -1 lies outside the live
+    span, where the plain version masks what it gathers from block 0."""
+    import numpy as np
+
+    mb = -(-WIN_MAX_SEQ // BLOCK)
+    nb = SLOTS * mb + 1
+    rng = np.random.default_rng(SEED + 5)
+    pos = rng.integers(0, max_pos, SLOTS).astype(np.int32)
+    pos[0], pos[1] = max_pos - 1, WIN_WINDOW // 2
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    table = np.full((SLOTS, mb), -1, np.int32)
+    sink_blocks = -(-sinks // BLOCK)
+    for i, p in enumerate(pos):
+        nblk = p // BLOCK + 1
+        table[i, :nblk] = perm[i * mb:i * mb + nblk]
+        if window is not None:
+            fl = max((int(p) - window + 1) // BLOCK, sink_blocks)
+            table[i, sink_blocks:fl] = -1
+    return table, pos, nb, mb
+
+
+def k2c_case(pool: str, window: int, sinks: int, gen, card: str,
+             max_pos: int, timed: bool):
+    """K2c against its plain version at the decode shape (B=8, KV=4, G=8,
+    hd=64, bs=8, positions up to max_pos - 1) over a ``pool`` ("bf16",
+    "fp32", "int8", "int4") pool, the table evicted as the engine leaves
+    it; under a window that does not bind, also bit for bit against K2a or
+    K2b. ``timed``: K2c, K2a/K2b on the unevicted table, the plain version
+    and SDPA over the K/V gathered to the live span (L2-cold)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        paged_attention, paged_attention_quant, paged_attention_quant_window,
+        paged_attention_window)
+    from repro_torch.kernels.paged_attention.ref import (
+        attended, bf16_rounding_tolerance, paged_attention_ref)
+    from repro_torch.quant.kv import KVQuantSpec, dequantize_kv, quantize_kv
+
+    b, kvh, g, hd, bs = SLOTS, 4, 8, 64, BLOCK
+    full_np, pos_np, nb, mb = _window_table(max_pos, None, 0)
+    dev = "cuda"
+    table = torch.from_numpy(_window_table(max_pos, window, sinks)[0]).to(
+        dev)
+    full = torch.from_numpy(full_np).to(dev)
+    pos = torch.from_numpy(pos_np).to(dev)
+    q = torch.randn((b, kvh, g, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    quant = pool in ("int8", "int4")
+    if quant:
+        spec = KVQuantSpec(bits=int(pool[-1]), group_size=32, head_dim=hd)
+        (kc, ks), (vc, vs) = (quantize_kv(torch.randn(
+            (nb, bs, kvh, hd), generator=gen, device=dev), spec)
+            for _ in range(2))
+        pools = (kc, vc, ks, vs)
+        kd, vd = dequantize_kv(kc, ks, spec), dequantize_kv(vc, vs, spec)
+        vec_bytes = spec.bytes_per_vector()
+    else:
+        dt = torch.bfloat16 if pool == "bf16" else torch.float32
+        pools = tuple(torch.randn((nb, bs, kvh, hd), generator=gen,
+                                  device=dev).to(dt) for _ in range(2))
+        kd, vd = (t.float() for t in pools)
+        vec_bytes = hd * pools[0].element_size()
+    win = {"window": window, "sinks": sinks}
+
+    def run_k2c(pl, tbl):
+        if quant:
+            return paged_attention_quant_window(q, *pl, tbl, pos, **win)
+        return paged_attention_window(q, *pl, tbl, pos, **win)
+
+    def run_unwindowed(pl, tbl):
+        if quant:
+            return paged_attention_quant(q, *pl, tbl, pos)
+        return paged_attention(q, *pl, tbl, pos)
+
+    def run_plain(pl, tbl, qq=q):
+        scales = {"k_scale": pl[2], "v_scale": pl[3]} if quant else {}
+        return paged_attention_ref(qq, pl[0], pl[1], tbl, pos, **win,
+                                   **scales)
+
+    got = run_k2c(pools, table)
+    want = run_plain(pools, table)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    res = {"pool": pool, "window": window, "sinks": sinks,
+           "max_abs_err": err}
+    if quant:
+        res["tol"] = bf16_rounding_tolerance(q, kd, vd, table, pos, **win)
+        err32 = float((got - run_plain(pools, table, q.float())).abs().max())
+        ok = err <= res["tol"] and err32 <= K2B_F32_RTOL * float(
+            vd.abs().max())
+        note = f", vs fp32 plain {err32:.3e}"
+    else:
+        res["tol"] = K2_TOL_FACTOR * float(vd.abs().max()) + 1e-5
+        ok, note = err <= res["tol"], ""
+    if window > int(pos_np.max()) and not sinks:
+        res["bit_equal"] = bool(torch.equal(got, run_unwindowed(pools,
+                                                                full)))
+        ok = ok and res["bit_equal"]
+        note += ("; bit-equal to " if res["bit_equal"] else
+                 "; NOT bit-equal to ") + ("K2b" if quant else "K2a")
+    res["ok"] = ok
+    valid = attended(pos, mb * bs, window, sinks)
+    tokens = int(valid.sum())               # keys the rows attend
+    print(f"[kernels] paged_attention_window {pool} B={b} KV={kvh} G={g} "
+          f"hd={hd} bs={bs} max_pos={int(pos_np.max())} window={window} "
+          f"sinks={sinks} ({tokens} live keys): max_abs_err {err:.3e} (tol "
+          f"{res['tol']:.3e}){note} -> {'ok' if ok else 'FAIL'} [{card}]")
+    if not timed:
+        return res
+
+    per_copy = sum(t.numel() * t.element_size() for t in pools)
+    copies = [tuple(t.clone() for t in pools)
+              for _ in range(copies_past_l2(per_copy, 64))]
+    it = iter(range(1 << 30))
+    res["ms"] = time_ms(lambda: run_k2c(copies[next(it) % len(copies)],
+                                        table))
+    res["unwindowed_ms"] = time_ms(lambda: run_unwindowed(
+        copies[next(it) % len(copies)], full))
+    res["plain_ms"] = time_ms(lambda: run_plain(
+        copies[next(it) % len(copies)], table))
+    # yardstick: SDPA over the K/V already gathered to each row's live keys
+    # (the gather, and for a quantized pool the dequantization, not timed),
+    # in bf16, GQA heads expanded, padded to the longest row and masked
+    lmax = int(valid.sum(dim=1).max())
+    order = torch.sort((~valid).to(torch.int32), dim=1,
+                       stable=True).indices
+    idx = order[:, :lmax]
+    keep = valid.gather(1, idx)
+    safe = torch.where(table >= 0, table, 0).long()
+
+    def live(x):
+        xg = x[safe].reshape(b, mb * bs, kvh, hd).to(torch.bfloat16)
+        xg = xg.gather(1, idx[:, :, None, None].expand(b, lmax, kvh, hd))
+        return xg.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+
+    kg, vg = live(kd), live(vd)
+    qs = q.reshape(b, kvh * g, 1, hd)
+    mask = keep[:, None, None, :]
+    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=mask))
+    res["bytes"] = (2 * b * kvh * g * hd + 2 * tokens * kvh * vec_bytes
+                    + 4 * b * mb + 4 * b + 4 * b * kvh * g * hd)
+    res["flops"] = 4.0 * tokens * kvh * g * hd
+    res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], res["flops"])
+    print(f"[kernels] paged_attention_window {pool} window={window} "
+          f"sinks={sinks}: kernel {res['ms']:.4f} ms, without the window "
+          f"({'K2b' if quant else 'K2a'}, whole rows) "
+          f"{res['unwindowed_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+          f"library (SDPA, live keys gathered) {res['library_ms']:.4f} ms, "
+          f"bound {res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}) "
+          f"[{card}]")
+    return res
+
+
 def mixed_k4_shapes(cfg) -> dict:
     """(K, N, bits) -> launches per forward of the mixed state's packed
     sites: 2-bit head, attn_q, mlp_gate; 4-bit attn_k, attn_v, mlp_up (the
@@ -635,6 +819,11 @@ def phase_kernels(cfg, m_prefill: int, card: str):
     for bits in (2, 4):
         k4[(3, 101, 37, bits)] = k4_case(3, 101, 37, bits, gen, card)
     k2b = {kv: k2b_case(kv, gen, card, max_pos) for kv in ("int8", "int4")}
+    win_pos = WIN_PROMPT_HI + MAX_NEW
+    k2c = {(pool, w, sk): k2c_case(pool, w, sk, gen, card, win_pos,
+                                   timed=(w, sk) == K2C_CASES[0])
+           for pool in ("bf16", "fp32", "int8", "int4")
+           for w, sk in K2C_CASES}
     k3 = {(m, n, dt): k3_case(m, n, dt, gen, card)
           for m, n, dt in k3_shapes(cfg)}
     for dt in ("float32", "bfloat16"):
@@ -643,13 +832,16 @@ def phase_kernels(cfg, m_prefill: int, card: str):
         + [f"softcap={r['softcap']}" for r in k2 if not r["ok"]] \
         + [(r["shape"], r["bits"]) for r in k4.values() if not r["ok"]] \
         + [r["kv_dtype"] for r in k2b.values() if not r["ok"]] \
-        + [(r["shape"], r["dtype"]) for r in k3.values() if not r["ok"]]
+        + [(r["shape"], r["dtype"]) for r in k3.values() if not r["ok"]] \
+        + [key for key, r in k2c.items() if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
     n_eq = sum(r["k1_bit_equal"] for r in k4.values())
     print(f"[kernels] K4 bit-equal to K1 on the unpacked codes in {n_eq} of "
           f"{len(k4)} cases; K3 bit-equal to its plain version in all "
-          f"{len(k3)} cases [{card}]")
-    return k1, k2, k4, k2b, k3
+          f"{len(k3)} cases; K2c under a window that does not bind "
+          f"bit-equal to K2a/K2b in all "
+          f"{sum('bit_equal' in r for r in k2c.values())} cases [{card}]")
+    return k1, k2, k4, k2b, k3, k2c
 
 
 def _to(tree, dev):
@@ -699,11 +891,16 @@ def _cpu_rounding(*, gemm_fp64: bool = False, attention_fp32: bool = False):
 
 
 def phase_parity(cfg, card: str, state: str = "uniform",
-                 kv_dtype: str = "bf16"):
+                 kv_dtype: str = "bf16", windowed: bool = False):
     """One prefill_slot and one decode_step of a 2-layer full-width model on
     the CPU (plain versions) and on the card (kernels), same weights: the
     uniform int8 or the mixed 2/4/8-bit state, over a ``kv_dtype`` pool. A
     third run on the CPU with fp64 GEMM sums gives the logits' spread.
+
+    ``windowed`` ([parity-window]): a PARITY_WINDOW_PLEN-token prompt under
+    WindowSpec(PARITY_WINDOW, PARITY_WINDOW_SINK_BLOCKS), and the engine's
+    out-of-window eviction before the decode step, so the decode runs K2c
+    over a table with evicted blocks.
 
     For the mixed state the CPU runs attend in fp32 (``_cpu_rounding``):
     on that ill-conditioned model the plain attention's bf16 roundings of
@@ -720,8 +917,12 @@ def phase_parity(cfg, card: str, state: str = "uniform",
     from repro_torch.serving.engine import (export_int_model,
                                             make_mixed_quant_state,
                                             make_uniform_quant_state)
+    from repro_torch.serving.window import WindowSpec, first_live_block
 
     cfg2 = dataclasses.replace(cfg, n_layers=2)
+    spec = WindowSpec(PARITY_WINDOW, PARITY_WINDOW_SINK_BLOCKS).bind(BLOCK) \
+        if windowed else None
+    wmask = None if spec is None else spec.mask
     params_cpu = tfm.init_params(cfg2, SEED, device="cpu")
     make_state = make_mixed_quant_state if state == "mixed" \
         else make_uniform_quant_state
@@ -729,7 +930,7 @@ def phase_parity(cfg, card: str, state: str = "uniform",
     kv_spec = None if kv_dtype == "bf16" else KVQuantSpec(
         bits=int(kv_dtype[-1]), group_size=math.gcd(cfg2.head_dim, 32),
         head_dim=cfg2.head_dim)
-    plen, slots, mb = 20, 2, 8
+    plen, slots, mb = (PARITY_WINDOW_PLEN if windowed else 20), 2, 8
     rng = np.random.default_rng(SEED + 2)
     toks = np.zeros((1, _bucket(plen)), np.int64)
     toks[0, :plen] = rng.integers(0, cfg2.vocab_size, plen)
@@ -757,20 +958,29 @@ def phase_parity(cfg, card: str, state: str = "uniform",
             alloc = kv_pool.alloc_range(alloc, 0, 0, -(-plen // BLOCK))
             lp, cache = tfm.prefill_slot(
                 qc, params, torch.from_numpy(toks).to(dev), plen, cache, 0,
-                cfg2, block_table=alloc["table"])
+                cfg2, block_table=alloc["table"], window=wmask)
             # every run decodes the plain CPU run's first token
             first = int(out["cpu"][0][plen - 1].argmax()) if out \
                 else int(lp[0, plen - 1, :cfg2.vocab_size].argmax())
             adv = torch.tensor([True, False], device=dev)
+            if spec is not None:
+                fl = first_live_block(cache["pos"], spec.window,
+                                      spec.sink_blocks, BLOCK)
+                alloc = kv_pool.evict_out_of_window(alloc, fl, adv,
+                                                    spec.sink_blocks)
             alloc = kv_pool.tick_alloc(alloc, cache["pos"], adv, BLOCK)
             ld, cache = tfm.decode_step(
                 qc, params, cache, torch.tensor([first, 0], device=dev), cfg2,
-                advance=adv, block_table=alloc["table"])
+                advance=adv, block_table=alloc["table"], window=wmask)
         out[run] = (lp[0, :plen, :cfg2.vocab_size].float().cpu(),
                     ld[0, 0, :cfg2.vocab_size].float().cpu())
         del params, qweights, qc, cache
     label = f"{state} state, {kv_dtype} KV" + (
-        ", CPU attention in fp32" if attention_fp32 else "")
+        ", CPU attention in fp32" if attention_fp32 else "") + (
+        f", window {spec.mask} over a {plen}-token prompt, "
+        f"{int((alloc['table'][0] >= 0).sum())} of {-(-(plen + 1) // BLOCK)}"
+        f" blocks left after eviction" if spec is not None else "")
+    tag = "[parity-window]" if windowed else "[parity]"
     for name, i in (("prefill", 0), ("decode", 1)):
         ref, got = out["cpu"][i], out["cuda"][i]
         check(bool(torch.isfinite(got).all()), f"{name} logits not finite")
@@ -788,7 +998,7 @@ def phase_parity(cfg, card: str, state: str = "uniform",
         rows = ref.reshape(-1, ref.shape[-1])
         agree = float((rows.argmax(-1) == got.reshape(
             -1, got.shape[-1]).argmax(-1)).float().mean())
-        print(f"[parity] 2-layer full-width, {label}, {name}: max |logit "
+        print(f"{tag} 2-layer full-width, {label}, {name}: max |logit "
               f"diff| {diff:.4e}, max |logit| {float(ref.abs().max()):.4e}, "
               f"spread under fp64 GEMM sums {spread:.4e}; tol {tol:.4e} = "
               f"max({PARITY_RTOL:g} x max|logit|, {PARITY_SPREAD_FACTOR:g} x "
@@ -796,7 +1006,7 @@ def phase_parity(cfg, card: str, state: str = "uniform",
               f"row(s), last row cpu {top_ref} vs card {top_got} [{card}]")
         if attention_fp32:
             bf16 = out["cpu_bf16_attention"][i]
-            print(f"[parity]   against the CPU with its plain bf16 attention "
+            print(f"{tag}   against the CPU with its plain bf16 attention "
                   f"instead: max |logit diff| "
                   f"{float((got - bf16).abs().max()):.4e}, last row top-1 "
                   f"{int(bf16.reshape(-1, bf16.shape[-1])[-1].argmax())}")
@@ -808,7 +1018,8 @@ def _counters() -> dict:
     """Every kernel wrapper of the port, by name; each counts its launches."""
     from repro_torch.kernels.fake_quant.fake_quant import fake_quant
     from repro_torch.kernels.paged_attention.paged_attention import (
-        paged_attention, paged_attention_quant)
+        paged_attention, paged_attention_quant, paged_attention_quant_window,
+        paged_attention_window)
     from repro_torch.kernels.quant_matmul.quant_matmul import (
         quant_matmul, quant_matmul_packed)
 
@@ -816,6 +1027,8 @@ def _counters() -> dict:
             "quant_matmul_packed": quant_matmul_packed,
             "paged_attention": paged_attention,
             "paged_attention_quant": paged_attention_quant,
+            "paged_attention_window": paged_attention_window,
+            "paged_attention_quant_window": paged_attention_quant_window,
             "fake_quant": fake_quant}
 
 
@@ -859,17 +1072,14 @@ def phase_serve(cfg, prompts, card: str, *, mixed: bool = False,
     st = eng.stats
     layers = cfg.n_layers
     forwards = st["prefill_forwards"] + st["decode_ticks"]
+    want = dict.fromkeys(counters, 0)
     if mixed:   # 8-bit attn_o, mlp_down: K1; the five packed sites: K4
-        want = {"quant_matmul": 2 * layers * forwards,
-                "quant_matmul_packed": (5 * layers + 1) * forwards,
-                "paged_attention": 0,
-                "paged_attention_quant": layers * st["decode_ticks"],
-                "fake_quant": 0}
+        want.update({"quant_matmul": 2 * layers * forwards,
+                     "quant_matmul_packed": (5 * layers + 1) * forwards,
+                     "paged_attention_quant": layers * st["decode_ticks"]})
     else:
-        want = {"quant_matmul": (7 * layers + 1) * forwards,
-                "quant_matmul_packed": 0,
-                "paged_attention": layers * st["decode_ticks"],
-                "paged_attention_quant": 0, "fake_quant": 0}
+        want.update({"quant_matmul": (7 * layers + 1) * forwards,
+                     "paged_attention": layers * st["decode_ticks"]})
     for r in results:
         check(r.finish_reason == "length" and len(r.tokens) == MAX_NEW,
               f"request {r.rid}: {r.finish_reason}, {len(r.tokens)} tokens")
@@ -900,6 +1110,103 @@ def phase_serve(cfg, prompts, card: str, *, mixed: bool = False,
           f"per tick); prefill {st['prefill_time_s']:.3f} s; wall "
           f"{wall:.3f} s [{card}]")
     return eng, launches, export
+
+
+def phase_serve_window(cfg, card: str, params):
+    """The 22-layer long-context serve (slice 4): the uniform int8 state
+    over a bf16 pool under WindowSpec(WIN_WINDOW, WIN_SINK_BLOCKS), 12
+    greedy requests whose prompts are all longer than the window, wave
+    admission, driven tick by tick through ``step`` (what ``generate``
+    does). Every launch counter is set to 0 just before the requests and
+    read just after; after every tick the K2c launches must have grown by
+    exactly n_layers per decode tick and no live slot may hold more than
+    max_live_blocks table entries."""
+    import torch
+
+    from repro_torch.serving.engine import (Request, ServingEngine,
+                                            make_uniform_quant_state)
+    from repro_torch.serving.window import WindowSpec, max_live_blocks
+
+    t0 = time.perf_counter()
+    spec = WindowSpec(WIN_WINDOW, sink_blocks=WIN_SINK_BLOCKS)
+    eng = ServingEngine(cfg, params, slots=SLOTS, max_seq=WIN_MAX_SEQ,
+                        quant_state=make_uniform_quant_state(cfg, params),
+                        block_size=BLOCK, kv_dtype="bf16",
+                        attention_window=spec)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompts = _prompts(cfg.vocab_size, WIN_PROMPT_LO, WIN_PROMPT_HI)
+    check(min(map(len, prompts)) > WIN_WINDOW, "a prompt fits the window")
+    cap = max_live_blocks(WIN_WINDOW, WIN_SINK_BLOCKS, BLOCK)
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for entry in eng.cache["layers"] for t in entry.values())
+    layers = cfg.n_layers
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    k2c = counters["paged_attention_window"]
+    reqs = [eng.submit(Request(rid=i, prompt=p, max_new=MAX_NEW))
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    held, bad_ticks, ticks = 0, [], 0
+    while not all(r.done for r in reqs):
+        before = k2c.launches
+        eng.step()
+        st = eng.stats
+        new_ticks, ticks = st["decode_ticks"] - ticks, st["decode_ticks"]
+        if k2c.launches - before != layers * new_ticks:
+            bad_ticks.append((ticks, k2c.launches - before))
+        live = [s for s, r in enumerate(eng.slot_req) if r is not None]
+        if live:        # a check's read of the table, outside the tick
+            rows = (eng.alloc["table"][live] >= 0).sum(dim=1)
+            held = max(held, int(rows.max()))
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    st = eng.stats
+    forwards = st["prefill_forwards"] + st["decode_ticks"]
+    want = dict.fromkeys(counters, 0)
+    want.update({"quant_matmul": (7 * layers + 1) * forwards,
+                 "paged_attention_window": layers * st["decode_ticks"]})
+    for r in reqs:
+        check(r.finish_reason == "length" and len(r.output) == MAX_NEW,
+              f"request {r.rid}: {r.finish_reason}, {len(r.output)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.output),
+              f"request {r.rid}: token outside the vocabulary")
+    check(st["tick_syncs"] == st["decode_ticks"],
+          f"{st['tick_syncs']} tick syncs for {st['decode_ticks']} ticks")
+    check(launches == want, f"launch counters {launches}, the path implies "
+          f"{want}")
+    check(not bad_ticks, f"ticks whose K2c launches are not {layers} per "
+          f"decode tick: {bad_ticks[:5]}")
+    check(held <= cap, f"a live slot held {held} blocks > {cap}")
+    n_free = int(eng.alloc["n_free"])
+    check(n_free == eng.num_blocks - 1
+          and bool((eng.alloc["ref"][1:] == 0).all()),
+          f"{eng.num_blocks - 1 - n_free} blocks leaked")
+    ttft = [r.first_token_s - r.submit_s for r in reqs]
+    decode_tokens = st["generated_tokens"] - len(reqs)
+    print(f"[serve-window] uniform int8, bf16 KV, window {spec.window} + "
+          f"{spec.sink_blocks} sink blocks: tinyllama-1.1b {layers} layers, "
+          f"{SLOTS} slots, max_seq {WIN_MAX_SEQ}, {len(prompts)} requests, "
+          f"prompts {min(map(len, prompts))}-{max(map(len, prompts))} "
+          f"tokens, max_new {MAX_NEW}: setup {setup_s:.2f} s; KV pool "
+          f"{eng.num_blocks} blocks, {pool_bytes} B; most table entries of "
+          f"a live slot after a tick {held} (max_live_blocks {cap}; the "
+          f"table is {eng.max_blocks} wide) [{card}]")
+    print(f"[serve-window] stats {json.dumps(st)}; kv_report window "
+          f"{json.dumps(eng.kv_report()['window'])}")
+    print(f"[serve-window] launches {launches} == expected {want}; K2c "
+          f"{layers} per tick in every tick; tick_syncs == decode_ticks == "
+          f"{st['decode_ticks']}; 0 blocks in use after the last retirement")
+    tok_s = decode_tokens / st["decode_time_s"]
+    print(f"[serve-window] TTFT mean {sum(ttft) / len(ttft):.4f} s max "
+          f"{max(ttft):.4f} s; decode {tok_s:.1f} tok/s "
+          f"({st['decode_time_s'] / st['decode_ticks'] * 1e3:.3f} ms "
+          f"per tick); prefill {st['prefill_time_s']:.3f} s; wall "
+          f"{wall:.3f} s [{card}]")
+    return eng, prompts, launches
 
 
 def phase_profile(eng, prompts, card: str, ticks: int = 5):
@@ -949,7 +1256,8 @@ def phase_profile(eng, prompts, card: str, ticks: int = 5):
             others[e.key[:60]] = others.get(e.key[:60], 0.0) + us / 1e3 / ticks
     busy = sum(by_kind.values())
     tag = f"{eng.kv_dtype} KV, " + ("mixed" if any(
-        q.packed for q in eng.qweights.values()) else "uniform int8")
+        q.packed for q in eng.qweights.values()) else "uniform int8") + (
+        f", window {eng.window_spec.mask}" if eng.window_spec else "")
     print(f"[profile] {tag}: {aten_calls / ticks:.0f} ATen calls per decode "
           f"tick (nested included) for {SLOTS} slots")
     if busy == 0:
@@ -1366,10 +1674,10 @@ def phase_train_serve(cfg, state, recipe, card: str):
     for key, q in eng.qweights.items():
         n = 1 if key == "head.w" else cfg.n_layers
         per_layer["packed" if q.packed else 8] += n
-    want = {"quant_matmul": per_layer[8] * forwards,
-            "quant_matmul_packed": per_layer["packed"] * forwards,
-            "paged_attention": cfg.n_layers * st["decode_ticks"],
-            "paged_attention_quant": 0, "fake_quant": 0}
+    want = dict.fromkeys(counters, 0)
+    want.update({"quant_matmul": per_layer[8] * forwards,
+                 "quant_matmul_packed": per_layer["packed"] * forwards,
+                 "paged_attention": cfg.n_layers * st["decode_ticks"]})
     print(f"[train->serve] export of the certified state: sites by storage "
           f"{classes}; 2 greedy requests x 16 tokens: "
           f"{[r.tokens for r in results]} [{card}]")
@@ -1383,15 +1691,17 @@ def phase_train_serve(cfg, state, recipe, card: str):
           f"serve launches {launches}, expected {want}")
 
 
-def kernels_line(cfg, k1, k2, k4, k2b, k3, launches, mixed_launches,
-                 train_launches):
+def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, launches, mixed_launches,
+                 train_launches, window_launches):
     """One entry per kernel. quant_matmul: one decode step's K1 work on the
     uniform path (its 155 GEMMs at M = slots, each shape times its count
     per step); quant_matmul_packed: one decode step's K4 work on the mixed
     path (its 111 packed GEMMs); paged_attention / _quant: one launch at the
-    decode shape (K2b over the mixed path's int4 pool); fake_quant: one
-    CGMQ forward's K3 work (its 221 launches, each shape times its count).
-    ``launches`` from each kernel's own path: serve, mixed serve, train."""
+    decode shape (K2b over the mixed path's int4 pool); paged_attention_
+    window: one K2c launch over a bf16 pool at window 256 + 16 sink tokens,
+    positions up to 927; fake_quant: one CGMQ forward's K3 work (its 221
+    launches, each shape times its count). ``launches`` from each kernel's
+    own path: serve, mixed serve, train, serve-window."""
     per_step = {(cfg.d_model, cfg.n_heads * cfg.head_dim): 2 * cfg.n_layers,
                 (cfg.d_model, cfg.n_kv_heads * cfg.head_dim):
                     2 * cfg.n_layers,
@@ -1406,6 +1716,7 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, launches, mixed_launches,
     k4_bound, k4_by = bound_ms(sum(r["bytes"] * c for r, c in rows4),
                                sum(r["flops"] * c for r, c in rows4))
     k2a, k2b4 = k2[0], k2b[MIXED_KV]
+    k2c_bf16 = k2c[("bf16",) + K2C_CASES[0]]
     rows3 = [(k3[key], c) for key, c in k3_shapes(cfg).items()]
     k3_bound, k3_by = bound_ms(sum(r["bytes"] * c for r, c in rows3),
                                sum(r["flops"] * c for r, c in rows3))
@@ -1446,6 +1757,15 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, launches, mixed_launches,
          "ms": k2b4["ms"], "plain_ms": k2b4["plain_ms"],
          "bound_ms": k2b4["bound_ms"], "bound_by": k2b4["bound_by"],
          "library_ms": k2b4["library_ms"]},
+        {"name": "paged_attention_window", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces":
+             "src/repro/kernels/paged_attention/paged_attention.py:206",
+         "launches": window_launches["paged_attention_window"],
+         "max_abs_err": max(r["max_abs_err"] for r in k2c.values()),
+         "ms": k2c_bf16["ms"], "plain_ms": k2c_bf16["plain_ms"],
+         "bound_ms": k2c_bf16["bound_ms"], "bound_by": k2c_bf16["bound_by"],
+         "library_ms": k2c_bf16["library_ms"]},
         {"name": "fake_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant/fake_quant.py:69",
@@ -1476,10 +1796,12 @@ def main() -> int:
     cfg = get_config("tinyllama-1.1b")
     prompts = _prompts(cfg.vocab_size)
     m_prefill = max(_bucket(len(p)) for p in prompts)
-    k1, k2, k4, k2b, k3 = phase_kernels(cfg, m_prefill, card)
+    k1, k2, k4, k2b, k3, k2c = phase_kernels(cfg, m_prefill, card)
     phase_parity(cfg, card)
     for kv_dtype in ("int8", "int4"):
         phase_parity(cfg, card, state="mixed", kv_dtype=kv_dtype)
+    for kv_dtype in ("bf16", "int8"):
+        phase_parity(cfg, card, kv_dtype=kv_dtype, windowed=True)
     torch.cuda.empty_cache()
     eng, launches, export = phase_serve(cfg, prompts, card)
     phase_profile(eng, prompts, card)
@@ -1494,6 +1816,10 @@ def main() -> int:
           f"{mixed_export['codes']} vs {export['codes']} B) [{card}]")
     check(total < uniform_total, "the mixed export is not smaller")
     phase_profile(eng, prompts, card)
+    del eng
+    torch.cuda.empty_cache()
+    eng, win_prompts, window_launches = phase_serve_window(cfg, card, params)
+    phase_profile(eng, win_prompts, card)
     del eng, params
     torch.cuda.empty_cache()
     phase_train_parity(cfg, card)
@@ -1501,8 +1827,9 @@ def main() -> int:
     phase_train_serve(cfg, state, recipe, card)
     del state
     print(f"[done] {time.perf_counter() - t_start:.1f} s [{card}]")
-    print(json.dumps(kernels_line(cfg, k1, k2, k4, k2b, k3, launches,
-                                  mixed_launches, train_launches)))
+    print(json.dumps(kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, launches,
+                                  mixed_launches, train_launches,
+                                  window_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,2 +1,3 @@
-"""K2a (float pool) and K2b (quantized pool) paged single-token decode
-attention: CUDA kernels and their plain version."""
+"""K2a (float pool), K2b (quantized pool) and K2c (either, under a sliding
+window with sinks) paged single-token decode attention: CUDA kernels and
+their plain version."""

@@ -1,11 +1,13 @@
-"""Wrapper of the K2a and K2b CUDA kernels ``csrc/paged_attention.cu``.
+"""Wrappers of the K2a, K2b and K2c CUDA kernels ``csrc/paged_attention.cu``.
 
 One-token GQA decode over a paged KV pool: the card's counterpart of
 ``repro/kernels/paged_attention/paged_attention.py:paged_attention_pallas``
-with no window, over a float pool (K2a) or a quantized one with
-``k_scale``/``v_scale`` (K2b: int8 codes or int4 nibbles plus fp16 group
-scales, ``quant/kv.py``). The source's header says what bounds them and how
-the kernels are laid out.
+over a float pool (K2a) or a quantized one with ``k_scale``/``v_scale``
+(K2b: int8 codes or int4 nibbles plus fp16 group scales, ``quant/kv.py``),
+and, under a sliding ``window`` with ``sinks`` (DESIGN.md §17), over either
+pool (K2c: ``paged_attention_window``, ``paged_attention_quant_window``,
+each counting its own launches). The source's header says what bounds
+them and how the kernels are laid out.
 """
 
 from __future__ import annotations
@@ -24,21 +26,34 @@ _SMEM_LIMIT = 48 * 1024
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = _build.load("paged_attention").paged_attention_bf16q
+def _kernel_fn(windowed: bool = False):
+    lib = _build.load("paged_attention")
+    fn = lib.paged_attention_window_bf16q if windowed \
+        else lib.paged_attention_bf16q
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * (2 * windowed) \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _quant_kernel_fn():
-    fn = _build.load("paged_attention").paged_attention_quant_bf16q
+def _quant_kernel_fn(windowed: bool = False):
+    lib = _build.load("paged_attention")
+    fn = lib.paged_attention_quant_window_bf16q if windowed \
+        else lib.paged_attention_quant_bf16q
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * (2 * windowed) \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_window(window, sinks) -> tuple[int, int]:
+    if window is None or int(window) < 1 or int(sinks) < 0:
+        raise ValueError(f"K2c needs window >= 1 and sinks >= 0, got "
+                         f"window={window} sinks={sinks}")
+    return int(window), int(sinks)
 
 
 def _check_scales(q, k_pool, v_pool, k_scale, v_scale) -> tuple[int, int]:
@@ -114,6 +129,66 @@ def _check(q, k_pool, v_pool, block_table, pos, *, quantized: bool = False):
                          f"shared-memory staging")
 
 
+def _launch_float(wrapper, q, k_pool, v_pool, block_table, pos, softcap,
+                  window):
+    """Launch K2a (``window`` None) or K2c (``window`` = (w, sinks)) over a
+    float pool, adding one to ``wrapper.launches`` per launch; returns the
+    output."""
+    _check(q, k_pool, v_pool, block_table, pos)
+    b, kvh, g, hd = q.shape
+    bs = k_pool.shape[1]
+    out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=q.device)
+    if b and kvh:
+        with torch.cuda.device(q.device):
+            rc = _kernel_fn(window is not None)(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                b, kvh, g, hd, bs, block_table.shape[1],
+                int(k_pool.dtype == torch.bfloat16), hd ** -0.5,
+                0.0 if softcap is None else float(softcap),
+                *(window or ()), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA "
+                               f"error {rc}")
+        wrapper.launches += 1
+    return out
+
+
+def _launch_quant(wrapper, q, k_pool, v_pool, k_scale, v_scale,
+                  block_table, pos, softcap, window):
+    """Launch K2b (``window`` None) or K2c (``window`` = (w, sinks)) over a
+    quantized pool, adding one to ``wrapper.launches`` per launch; returns
+    the output."""
+    _check(q, k_pool, v_pool, block_table, pos, quantized=True)
+    bits, group_size = _check_scales(q, k_pool, v_pool, k_scale, v_scale)
+    b, kvh, g, hd = q.shape
+    bs = k_pool.shape[1]
+    out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=q.device)
+    if b and kvh:
+        with torch.cuda.device(q.device):
+            rc = _quant_kernel_fn(window is not None)(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(),
+                block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                b, kvh, g, hd, bs, block_table.shape[1], bits, group_size,
+                hd ** -0.5, 0.0 if softcap is None else float(softcap),
+                *(window or ()), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA "
+                               f"error {rc}")
+        wrapper.launches += 1
+    return out
+
+
+def _on_card(q, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    return True
+
+
 def paged_attention(q, k_pool, v_pool, block_table, pos, *,
                     softcap: float | None = None) -> torch.Tensor:
     """K2a. q: (B, KV, G, hd) bf16; pools: (num_blocks, bs, KV, hd) bf16 or
@@ -124,30 +199,11 @@ def paged_attention(q, k_pool, v_pool, block_table, pos, *,
     tensor launches the kernel on the current stream, without
     synchronising, and raises if the launch is refused.
     """
-    if q.device.type == "cpu":
+    if not _on_card(q, "paged_attention"):
         return paged_attention_ref(q, k_pool, v_pool, block_table, pos,
                                    softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention runs on cpu or cuda, not "
-                         f"{q.device}")
-    _check(q, k_pool, v_pool, block_table, pos)
-    b, kvh, g, hd = q.shape
-    bs = k_pool.shape[1]
-    out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=q.device)
-    if b and kvh:
-        with torch.cuda.device(q.device):
-            rc = _kernel_fn()(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                b, kvh, g, hd, bs, block_table.shape[1],
-                int(k_pool.dtype == torch.bfloat16), hd ** -0.5,
-                0.0 if softcap is None else float(softcap),
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"paged_attention launch failed: CUDA error "
-                               f"{rc}")
-        paged_attention.launches += 1
-    return out
+    return _launch_float(paged_attention, q, k_pool, v_pool, block_table,
+                         pos, softcap, None)
 
 
 paged_attention.launches = 0
@@ -165,32 +221,57 @@ def paged_attention_quant(q, k_pool, v_pool, k_scale, v_scale, block_table,
     scales); a CUDA tensor launches the kernel on the current stream,
     without synchronising, and raises if the launch is refused.
     """
-    if q.device.type == "cpu":
+    if not _on_card(q, "paged_attention_quant"):
         return paged_attention_ref(q, k_pool, v_pool, block_table, pos,
                                    softcap=softcap, k_scale=k_scale,
                                    v_scale=v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention_quant runs on cpu or cuda, not "
-                         f"{q.device}")
-    _check(q, k_pool, v_pool, block_table, pos, quantized=True)
-    bits, group_size = _check_scales(q, k_pool, v_pool, k_scale, v_scale)
-    b, kvh, g, hd = q.shape
-    bs = k_pool.shape[1]
-    out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=q.device)
-    if b and kvh:
-        with torch.cuda.device(q.device):
-            rc = _quant_kernel_fn()(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                k_scale.data_ptr(), v_scale.data_ptr(),
-                block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                b, kvh, g, hd, bs, block_table.shape[1], bits, group_size,
-                hd ** -0.5, 0.0 if softcap is None else float(softcap),
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"paged_attention_quant launch failed: CUDA "
-                               f"error {rc}")
-        paged_attention_quant.launches += 1
-    return out
+    return _launch_quant(paged_attention_quant, q, k_pool, v_pool, k_scale,
+                         v_scale, block_table, pos, softcap, None)
 
 
 paged_attention_quant.launches = 0
+
+
+def paged_attention_window(q, k_pool, v_pool, block_table, pos, *,
+                           window: int, sinks: int = 0,
+                           softcap: float | None = None) -> torch.Tensor:
+    """K2c over a float pool: ``paged_attention`` attending only key
+    positions ``kp <= pos`` with ``pos - kp < window or kp < sinks``
+    (``sinks`` in tokens). Table entries the window has evicted (-1) are
+    never read. Returns (B, KV, G, hd) fp32.
+
+    A CPU tensor takes the plain version (``paged_attention_ref`` with the
+    window); a CUDA tensor launches the kernel on the current stream,
+    without synchronising, and raises if the launch is refused.
+    """
+    win = _check_window(window, sinks)
+    if not _on_card(q, "paged_attention_window"):
+        return paged_attention_ref(q, k_pool, v_pool, block_table, pos,
+                                   window=win[0], sinks=win[1],
+                                   softcap=softcap)
+    return _launch_float(paged_attention_window, q, k_pool, v_pool,
+                         block_table, pos, softcap, win)
+
+
+paged_attention_window.launches = 0
+
+
+def paged_attention_quant_window(q, k_pool, v_pool, k_scale, v_scale,
+                                 block_table, pos, *, window: int,
+                                 sinks: int = 0,
+                                 softcap: float | None = None
+                                 ) -> torch.Tensor:
+    """K2c over a quantized pool: ``paged_attention_quant`` under the
+    window and sinks of ``paged_attention_window``. Returns (B, KV, G, hd)
+    fp32; a CPU tensor takes the plain version."""
+    win = _check_window(window, sinks)
+    if not _on_card(q, "paged_attention_quant_window"):
+        return paged_attention_ref(q, k_pool, v_pool, block_table, pos,
+                                   window=win[0], sinks=win[1],
+                                   softcap=softcap, k_scale=k_scale,
+                                   v_scale=v_scale)
+    return _launch_quant(paged_attention_quant_window, q, k_pool, v_pool,
+                         k_scale, v_scale, block_table, pos, softcap, win)
+
+
+paged_attention_quant_window.launches = 0

@@ -1,5 +1,5 @@
 """Plain PyTorch version: single-token GQA decode through a paged KV pool
-(float or quantized pool, no window)."""
+(float or quantized pool, optionally under a sliding window with sinks)."""
 
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ def _dequant_gathered(codes, scale, hd):
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_table, pos, *,
+                        window: int | None = None, sinks: int = 0,
                         softcap: float | None = None, k_scale=None,
                         v_scale=None) -> torch.Tensor:
     """q: (B, KV, G, hd); pools: (num_blocks, bs, KV, hd) float, or
@@ -28,11 +29,13 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, pos, *,
 
     Mirrors ``repro/kernels/paged_attention/ref.py:paged_attention_ref``:
     gather every table entry (-1 gathers the garbage block 0, whose
-    positions lie past ``pos`` and are masked); a quantized pool gathers
-    codes and scales through the same entries and dequantizes right after
-    the gather; then scores from q and K in q's dtype with fp32
-    accumulation, mask ``col <= pos``, fp32 softmax, and the probabilities
-    are cast to q's dtype before the PV product.
+    positions lie past ``pos`` or, evicted, outside the window, and are
+    masked); a quantized pool gathers codes and scales through the same
+    entries and dequantizes right after the gather; then scores from q and
+    K in q's dtype with fp32 accumulation, mask ``col <= pos`` and, with a
+    ``window``, ``pos - col < window or col < sinks`` (DESIGN.md §17),
+    fp32 softmax, and the probabilities are cast to q's dtype before the
+    PV product.
     """
     b, kvh, g, hd = q.shape
     bs = k_pool.shape[1]
@@ -53,14 +56,27 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, pos, *,
     logits = torch.einsum("bkgd,bskd->bkgs", qf, kf) * hd ** -0.5
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
-    sids = torch.arange(mb * bs, device=q.device)[None, :]
-    valid = sids <= pos.to(torch.int64)[:, None]
+    valid = attended(pos, mb * bs, window, sinks)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype).to(torch.float32)
     return torch.einsum("bkgs,bskd->bkgd", probs, vf)
 
 
-def bf16_rounding_tolerance(q, k, v, block_table, pos) -> float:
+def attended(pos, length: int, window: int | None = None,
+             sinks: int = 0) -> torch.Tensor:
+    """(B, length) bool: which key positions each row's query at ``pos``
+    attends, ``kp <= p and (p - kp < window or kp < sinks)``."""
+    kp = torch.arange(length, device=pos.device)[None, :]
+    p = pos.to(torch.int64)[:, None]
+    valid = kp <= p
+    if window is not None:
+        valid &= ((p - kp) < window) | (kp < sinks)
+    return valid
+
+
+def bf16_rounding_tolerance(q, k, v, block_table, pos, *,
+                            window: int | None = None,
+                            sinks: int = 0) -> float:
     """How far ``paged_attention_ref`` may lie from a kernel that keeps K,
     V and the probabilities in fp32 (K2b, like the TPU kernel), for
     dequantized pools ``k``/``v`` (num_blocks, bs, KV, hd) fp32.
@@ -79,8 +95,7 @@ def bf16_rounding_tolerance(q, k, v, block_table, pos) -> float:
     safe = torch.where(block_table >= 0, block_table, 0).long()
     kg = k[safe].reshape(b, mb * bs, kvh, hd).to(torch.float32).abs()
     s = torch.einsum("bkgd,bskd->bkgs", q.to(torch.float32).abs(), kg)
-    live = torch.arange(mb * bs, device=q.device)[None, :] \
-        <= pos.to(torch.int64)[:, None]
+    live = attended(pos, mb * bs, window, sinks)
     s = torch.where(live[:, None, None, :], s, 0.0)
     s_max = float(s.max()) * hd ** -0.5
     return 2.0 ** -8 * float(v.abs().max()) * (1.0 + s_max) + 1e-5

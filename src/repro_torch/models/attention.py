@@ -1,4 +1,5 @@
-"""Attention: GQA with global causal masks, dense prefill and paged decode.
+"""Attention: GQA with global causal masks, dense prefill and paged decode,
+optionally under a sliding window with sink tokens (DESIGN.md §17).
 
 Counterpart of ``repro/models/attention.py`` for global layers:
 
@@ -9,10 +10,13 @@ Counterpart of ``repro/models/attention.py`` for global layers:
   * ``attention_decode_paged`` -- one-token decode through a paged KV pool:
     the new K/V is written into the pool (quantized at the write site for
     an int8/int4 pool), then ``paged_attention_op`` (the K2a or K2b CUDA
-    kernel on the card) attends through the block table.
+    kernel on the card, K2c under a window) attends through the block
+    table.
 
-Sliding-window (local) layers, windows and sinks come with ROADMAP queue 1
-items 13-14.
+Both take the engine's ``(window, sink_tokens)`` tuple (``window=None``:
+causal only), resolved per layer by ``_resolve_window``. Sliding-window
+(local) layers come with ROADMAP queue 1 item 14; ``_resolve_window`` is
+ported whole for them.
 """
 
 from __future__ import annotations
@@ -65,9 +69,25 @@ def _repeat_kv(t, groups: int):
         b, s, kv * groups, hd)
 
 
+def _resolve_window(window, kind: str, cfg: ModelConfig):
+    """The ``(window, sink_tokens)`` of one layer from the engine's tuple
+    (``repro``'s ``_resolve_window``): local layers tighten their
+    architectural window to ``min(cfg.window, w)`` and drop sinks, global
+    layers take the tuple verbatim. ``(None, 0)`` means causal only."""
+    if window is None:
+        return (cfg.window if kind == "local" else None, 0)
+    w, sinks = window
+    if kind == "local":
+        return (min(cfg.window, w), 0)
+    return (w, sinks)
+
+
 def attention_train(qc: QuantContext, p, x, cfg: ModelConfig, *,
-                    positions=None):
-    """Causal attention over a whole sequence. Returns (y, (k, v))."""
+                    positions=None, window=None):
+    """Causal attention over a whole sequence; with the engine's
+    ``(window, sink_tokens)`` tuple, a key is also masked unless it lies
+    within ``window`` of the query or among the sinks. Returns
+    (y, (k, v))."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -79,8 +99,15 @@ def attention_train(qc: QuantContext, p, x, cfg: ModelConfig, *,
         "bqhd,bkhd->bhqk", q.to(COMPUTE_DTYPE).to(torch.float32),
         k_r.to(COMPUTE_DTYPE).to(torch.float32)) * cfg.head_dim ** -0.5
     logits = softcap(logits, cfg.attn_softcap)
-    idx = torch.arange(s, device=x.device)
-    mask = idx[:, None] >= idx[None, :]
+    qi = torch.arange(s, device=x.device)[:, None]
+    ki = torch.arange(s, device=x.device)[None, :]
+    mask = qi >= ki
+    eff, sinks = _resolve_window(window, "global", cfg)
+    if eff is not None:
+        in_win = (qi - ki) < eff
+        if sinks:
+            in_win |= ki < sinks
+        mask &= in_win
     logits = torch.where(mask[None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(COMPUTE_DTYPE)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(torch.float32),
@@ -91,7 +118,8 @@ def attention_train(qc: QuantContext, p, x, cfg: ModelConfig, *,
 
 
 def attention_decode_paged(qc: QuantContext, p, x, pool: dict, block_table,
-                           pos, cfg: ModelConfig, *, write_mask=None):
+                           pos, cfg: ModelConfig, *, write_mask=None,
+                           window=None):
     """One-token decode through a paged KV pool.
 
     ``pool``: {"k", "v"} of (num_blocks, bs, KV, hd), one layer's physical
@@ -134,9 +162,10 @@ def attention_decode_paged(qc: QuantContext, p, x, pool: dict, block_table,
 
     groups = cfg.n_heads // cfg.n_kv_heads
     qg = q[:, 0].reshape(b, cfg.n_kv_heads, groups, cfg.head_dim)
+    eff, sinks = _resolve_window(window, "global", cfg)
     out = paged_attention_op(qg.to(COMPUTE_DTYPE), pool["k"], pool["v"],
-                             block_table, pos, softcap=cfg.attn_softcap,
-                             **scales)
+                             block_table, pos, window=eff, sinks=sinks,
+                             softcap=cfg.attn_softcap, **scales)
     out = out.to(COMPUTE_DTYPE).reshape(b, 1, cfg.n_heads * cfg.head_dim)
     y = qmatmul(qc, "attn_o", out, p["wo"])
     return qc.act("attn_o", y), pool

@@ -13,9 +13,10 @@ Entry points:
   init_params(cfg, seed, device=...)
   collect_sites(cfg) / site_weights(params, cfg)
   forward_train(qc, params, batch, cfg)            -> logits
-  prefill_slot(qc, params, tokens, plen, cache, slot, cfg, block_table=...)
+  prefill_slot(qc, params, tokens, plen, cache, slot, cfg, block_table=...,
+               window=...)                         -> logits, cache
+  decode_step(qc, params, cache, tokens, cfg, ..., window=...)
                                                    -> logits, cache
-  decode_step(qc, params, cache, tokens, cfg, ...) -> logits, cache
   init_paged_cache(cfg, batch, num_blocks, block_size, ...)
 
 Other block kinds (local, ssm, recurrent), MoE, qk-norm, qkv-bias, M-RoPE,
@@ -234,13 +235,14 @@ def _head(qc: QuantContext, params, h, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _apply_block_full(qc, bp, h, cfg: ModelConfig, *, positions):
+def _apply_block_full(qc, bp, h, cfg: ModelConfig, *, positions,
+                      window=None):
     """Full-sequence block. Returns (h, (k, v)) with k/v in bf16."""
     resid = h
     hn = rms_norm(h, bp["ln1"], cfg.norm_eps)
     with qc.scope("attn"):
         y, (k, v) = attn.attention_train(qc, bp["attn"], hn, cfg,
-                                         positions=positions)
+                                         positions=positions, window=window)
     h = resid + y.to(resid.dtype)
     resid = h
     hn = rms_norm(h, bp["ln2"], cfg.norm_eps)
@@ -251,13 +253,13 @@ def _apply_block_full(qc, bp, h, cfg: ModelConfig, *, positions):
 
 
 def _apply_block_decode(qc, bp, h, pool, pos, cfg: ModelConfig, *,
-                        block_table, write_mask):
+                        block_table, write_mask, window=None):
     resid = h
     hn = rms_norm(h, bp["ln1"], cfg.norm_eps)
     with qc.scope("attn"):
         y, _ = attn.attention_decode_paged(
             qc, bp["attn"], hn, pool, block_table, pos, cfg,
-            write_mask=write_mask)
+            write_mask=write_mask, window=window)
     h = resid + y.to(resid.dtype)
     resid = h
     hn = rms_norm(h, bp["ln2"], cfg.norm_eps)
@@ -313,11 +315,13 @@ def forward_train(qc: QuantContext, params, batch, cfg: ModelConfig):
 
 
 def prefill_slot(qc: QuantContext, params, tokens, plen: int, cache, slot: int,
-                 cfg: ModelConfig, *, block_table=None, start_blk: int = 0):
+                 cfg: ModelConfig, *, block_table=None, start_blk: int = 0,
+                 window=None):
     """Batched prefill for one serving slot through the paged cache.
 
     ``tokens``: (1, S_pad) int, right-padded; ``plen`` the real length. Runs
-    the whole padded prompt through one causal forward, scatters each
+    the whole padded prompt through one causal forward (under the engine's
+    ``(window, sink_tokens)`` tuple ``window``, DESIGN.md §17), scatters each
     layer's K/V into the pools at the physical ids of the slot's table row
     (``kv_pool.write_prompt_blocks``, blocks below ``start_blk`` skipped),
     and sets the slot's pos to ``plen``. The pools and ``cache["pos"]`` are
@@ -334,7 +338,7 @@ def prefill_slot(qc: QuantContext, params, tokens, plen: int, cache, slot: int,
     for sub, bp, pool, prefix in _layers(qc, params, cache, cfg):
         with sub.scope(prefix):
             h, (k, v) = _apply_block_full(sub, bp, h, cfg,
-                                          positions=positions)
+                                          positions=positions, window=window)
         kv_pool.write_prompt_blocks(pool, k[0], v[0], row, start_blk, nblk,
                                     bs)
     cache["pos"][slot] = plen
@@ -362,13 +366,15 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
 
 
 def decode_step(qc: QuantContext, params, cache, tokens, cfg: ModelConfig, *,
-                advance=None, block_table=None):
+                advance=None, block_table=None, window=None):
     """One decode step for the whole batch. tokens: (B,) int.
 
     ``cache["pos"]`` is per row, so slots decode at independent positions.
     ``advance`` ((B,) bool/int) selects which rows bump their position;
-    rows that do not advance write their K/V to the garbage block. The
-    pools are written IN PLACE; the returned cache carries a new ``pos``.
+    rows that do not advance write their K/V to the garbage block. Every
+    layer attends under the engine's ``(window, sink_tokens)`` tuple
+    ``window`` (``None``: causal only). The pools are written IN PLACE; the
+    returned cache carries a new ``pos``.
     Returns (logits (B, 1, V), cache).
     """
     _require_paged(block_table)
@@ -379,7 +385,7 @@ def decode_step(qc: QuantContext, params, cache, tokens, cfg: ModelConfig, *,
         with sub.scope(prefix):
             h = _apply_block_decode(sub, bp, h, pool, pos, cfg,
                                     block_table=block_table,
-                                    write_mask=write_mask)
+                                    write_mask=write_mask, window=window)
     logits = _head(qc, params, h, cfg)
     adv = 1 if advance is None else advance.to(pos.dtype)
     return logits, {"pos": pos + adv, "layers": cache["layers"]}

@@ -15,11 +15,18 @@ Counterpart of ``repro/serving/engine.py``, reduced to this slice:
     one ``decode_step`` for all slots and the greedy pick on the device, and
     fetches the tick's results in exactly ONE host transfer (``_sync``,
     counted in ``stats["tick_syncs"]``).
+  * ``attention_window`` (an int or a ``window.WindowSpec``, DESIGN.md §17)
+    serves long prompts under a sliding window with pinned sink blocks:
+    prefill and decode mask to it (decode through K2c on the card), and
+    every tick first releases, on the device and inside the tick's one
+    sync, the blocks the window no longer reaches
+    (``kv_pool.evict_out_of_window``), so a slot holds O(window) blocks.
 
 Not ported yet, each rejected with ``NotImplementedError`` naming its
-ROADMAP item: the ring layout, integer activation GEMMs, chunked prefill,
-windows, sampling with temperature. Prefix sharing, preemption, admission
-control and deadlines are absent.
+ROADMAP item: the ring layout, integer activation GEMMs, chunked prefill
+(so also between-chunk eviction), undersized pools, sampling with
+temperature. Prefix sharing, preemption, admission control and deadlines
+are absent.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.quant import export_sites, specs_from_state
 from repro_torch.quant.kv import KVQuantSpec, kv_cache_report
 from repro_torch.serving import kv_pool
+from repro_torch.serving.window import (WindowSpec, as_window_spec,
+                                        first_live_block, window_report)
 from repro_torch.serving.sampling import (SamplingParams, finite_rows,
                                           greedy_tokens)
 
@@ -175,7 +184,9 @@ class ServingEngine:
     quantized where they are written. ``block_size``/``num_blocks`` size
     the pool; the default ``slots * ceil(max_seq/bs) + 1`` blocks hold
     every slot at ``max_seq``, so the in-tick allocator can never run dry.
-    ``device=None`` means the card.
+    ``attention_window``: ``None``, an int (a sliding window, no sinks) or a
+    ``WindowSpec`` (window plus pinned sink blocks), bound to
+    ``block_size``. ``device=None`` means the card.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
@@ -184,14 +195,13 @@ class ServingEngine:
                  block_size: int = 8, num_blocks: int | None = None,
                  max_stop: int = 4, act_bits: int | None = None,
                  prefill_chunk_tokens: int | None = None,
-                 attention_window=None, device=None):
+                 attention_window: int | WindowSpec | None = None,
+                 device=None):
         unported = {
             "kv_layout='ring'": (kv_layout == "ring", 10, "the ring layout"),
             "act_bits": (act_bits is not None, 9, "fully-integer GEMMs"),
             "prefill_chunk_tokens": (prefill_chunk_tokens is not None, 12,
                                      "continuous batching"),
-            "attention_window": (attention_window is not None, 13,
-                                 "long context"),
         }
         for opt, (hit, item, what) in unported.items():
             if hit:
@@ -224,6 +234,15 @@ class ServingEngine:
 
         self.block_size = block_size
         self.max_blocks = -(-max_seq // block_size)
+        # Long context (DESIGN.md §17): None attends causally; a window
+        # masks every layer to (window, sink_tokens) and drives the in-tick
+        # eviction. Without chunked prefill a slot's worst case is still
+        # its whole table (the prompt is written before the first
+        # eviction: window.window_demand_blocks without a chunk size), so
+        # the pool is sized as without a window.
+        self.window_spec = as_window_spec(attention_window, block_size)
+        self._window = None if self.window_spec is None \
+            else self.window_spec.mask
         min_blocks = slots * self.max_blocks + 1
         if num_blocks is not None and num_blocks < min_blocks:
             raise NotImplementedError(
@@ -284,11 +303,16 @@ class ServingEngine:
 
     def kv_report(self) -> dict:
         """Bytes per cached token of the pools, by layer and in total
-        (``quant.kv.kv_cache_report``)."""
+        (``quant.kv.kv_cache_report``); under a window also its residency
+        bound (``window.window_report``) under ``"window"``."""
         kinds = list(self.cfg.block_pattern) * self.cfg.pattern_repeats
-        return kv_cache_report(kinds, self.cfg.n_kv_heads, self.cfg.head_dim,
-                               spec=self.kv_spec, dtype=self._kv_store,
-                               kv_dtype=self.kv_dtype)
+        report = kv_cache_report(kinds, self.cfg.n_kv_heads,
+                                 self.cfg.head_dim, spec=self.kv_spec,
+                                 dtype=self._kv_store, kv_dtype=self.kv_dtype)
+        if self.window_spec is not None:
+            report["window"] = window_report(self.window_spec,
+                                             self.max_blocks, self.block_size)
+        return report
 
     # ------------------------------------------------------------------
     def _prefill_shape(self, plen: int) -> int:
@@ -348,7 +372,8 @@ class ServingEngine:
         toks[0, :plen] = prompt
         logits, self.cache = tfm.prefill_slot(
             self._qc, self.params, torch.from_numpy(toks).to(self.device),
-            plen, self.cache, s, self.cfg, block_table=self.alloc["table"])
+            plen, self.cache, s, self.cfg, block_table=self.alloc["table"],
+            window=self._window)
         self.stats["prefill_forwards"] += 1
         return logits[0, plen - 1, : self.cfg.vocab_size]
 
@@ -428,17 +453,28 @@ class ServingEngine:
         return events
 
     def _tick(self):
-        """One device-side generation step for the whole batch: block
+        """One device-side generation step for the whole batch: under a
+        window, eviction of the blocks it no longer reaches; block
         allocation, decode, the non-finite guard, greedy pick, stop/length
         bookkeeping. Returns device tensors; nothing here waits for the
         card."""
         st = self.state
         live = st["active"]
+        if self._window is not None:
+            # before allocation, so freed blocks serve this tick's pops; fl
+            # is the first block K2c's walk reads, so no evicted block is
+            # ever attended
+            sink_blocks = self.window_spec.sink_blocks
+            fl = first_live_block(self.cache["pos"], self.window_spec.window,
+                                  sink_blocks, self.block_size)
+            self.alloc = kv_pool.evict_out_of_window(self.alloc, fl, live,
+                                                     sink_blocks)
         self.alloc = kv_pool.tick_alloc(self.alloc, self.cache["pos"], live,
                                         self.block_size)
         logits, self.cache = tfm.decode_step(
             self._qc, self.params, self.cache, st["last_tok"], self.cfg,
-            advance=live, block_table=self.alloc["table"])
+            advance=live, block_table=self.alloc["table"],
+            window=self._window)
         rows = logits[:, 0, : self.cfg.vocab_size]
         ok = finite_rows(rows)
         emitted = live & ok

@@ -100,13 +100,26 @@ def alloc_range(alloc, slot: int, start: int, n: int):
 
 def free_slot(alloc, slot: int):
     """Retire a slot: decref every valid table entry, push blocks whose
-    refcount hits 0 back on the stack (in row order), clear the row."""
+    refcount hits 0 back on the stack (in row order), clear the row
+    (``release_range`` over the whole row)."""
+    return release_range(alloc, slot, 0, alloc["table"].shape[1])
+
+
+def release_range(alloc, slot: int, start: int, n: int):
+    """Release ``table[slot, start:start+n]``: decref every valid entry of
+    the span, clear it to -1, and push blocks whose refcount hits 0 onto
+    the free stack in row order (DESIGN.md §17), as ``repro``'s
+    ``release_range``. A block another reference still holds keeps a
+    positive count and stays off the stack, and a later release skips the
+    cleared entries, so nothing is freed twice."""
     nb = alloc["free"].shape[0]
+    mb = alloc["table"].shape[1]
     row = alloc["table"][slot]
-    valid = row >= 0
-    safe = torch.where(valid, row, 0).long()
-    ref = alloc["ref"].index_add(0, safe, -_i32(valid))
-    freed = valid & (ref[safe] == 0)
+    j = torch.arange(mb, device=row.device)
+    take = (j >= start) & (j < start + n) & (row >= 0)
+    safe = torch.where(take, row, 0).long()
+    ref = alloc["ref"].index_add(0, safe, -_i32(take))
+    freed = take & (ref[safe] == 0)
     rank = torch.cumsum(_i32(freed), 0) - 1
     # Junk lanes write free[nb-1] back to itself: the stack holds at most
     # nb-1 entries, so index nb-1 is never live.
@@ -115,12 +128,54 @@ def free_slot(alloc, slot: int):
     free = alloc["free"].clone()
     free[idx] = _i32(vals)
     table = alloc["table"].clone()
-    table[slot] = -1
+    table[slot] = torch.where(take, -1, row)
     return {
         "free": free,
         "n_free": alloc["n_free"] + _i32(freed.sum()),
         "ref": ref,
         "table": table,
+    }
+
+
+def evict_out_of_window(alloc, first_live, live, sink_blocks: int):
+    """In-tick out-of-window eviction (DESIGN.md §17): for every row in
+    ``live``, release logical blocks ``sink_blocks <= j < first_live[row]``,
+    the blocks the sliding window no longer reaches (``first_live`` from
+    ``window.first_live_block``). Device-side tensor code only: no host
+    round trip, so the tick keeps its one sync.
+
+    Two rows may drop the same physical block in one call, so decrements
+    are accumulated per physical block first and each block is pushed at
+    most once, when its refcount reaches 0, in physical-id order (as
+    ``repro``'s). Sink blocks and blocks with a surviving reference are
+    never freed.
+    """
+    nb = alloc["free"].shape[0]
+    tbl = alloc["table"]
+    mb = tbl.shape[1]
+    cols = torch.arange(mb, device=tbl.device)[None, :]
+    ev = (live.to(torch.bool)[:, None] & (cols >= sink_blocks)
+          & (cols < first_live[:, None]) & (tbl >= 0))
+    ids = torch.where(ev, tbl, 0).long()
+    dec = torch.zeros((nb,), dtype=torch.int32, device=tbl.device).index_add(
+        0, ids.reshape(-1), _i32(ev.reshape(-1)))
+    dec[0] = 0      # junk lanes accumulate on the garbage block's id
+    ref = alloc["ref"] - dec
+    freed = (dec > 0) & (ref == 0)
+    rank = torch.cumsum(_i32(freed), 0) - 1
+    # index nb-1 is never a live stack entry (the stack holds at most nb-1
+    # blocks, in [0, nb-2]): junk lanes write its own value back to it
+    idx = torch.where(freed, alloc["n_free"] + rank, nb - 1).long()
+    vals = torch.where(freed, torch.arange(nb, dtype=torch.int32,
+                                           device=tbl.device),
+                       alloc["free"][nb - 1])
+    free = alloc["free"].clone()
+    free[idx] = vals
+    return {
+        "free": free,
+        "n_free": alloc["n_free"] + _i32(freed.sum()),
+        "ref": ref,
+        "table": torch.where(ev, -1, tbl),
     }
 
 

@@ -1,8 +1,10 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version at small and ragged shapes (K4 also bit for bit against K1 on the
-unpacked codes, K3 bit for bit against its plain version), the serving
-engine on the card, uniform int8 and mixed 2/4/8-bit over an int4 KV pool,
-and CGMQ train steps on the card against the same steps on the CPU.
+unpacked codes, K3 bit for bit against its plain version, K2c under a
+window that does not bind bit for bit against K2a/K2b), the serving engine
+on the card, uniform int8 and mixed 2/4/8-bit over an int4 KV pool and
+under a sliding window, and CGMQ train steps on the card against the same
+steps on the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it also runs where only PyTorch is installed (the
@@ -26,7 +28,8 @@ from repro_torch.kernels.fake_quant.ref import fake_quant_ref
 from repro_torch.launch import steps as train_steps
 from repro_torch.optim.adam import tree_leaves
 from repro_torch.kernels.paged_attention.paged_attention import (
-    paged_attention, paged_attention_quant)
+    paged_attention, paged_attention_quant, paged_attention_quant_window,
+    paged_attention_window)
 from repro_torch.kernels.paged_attention.ref import (
     bf16_rounding_tolerance, paged_attention_ref)
 from repro_torch.kernels.quant_matmul.quant_matmul import (
@@ -39,6 +42,7 @@ from repro_torch.quant.pack import pack_codes
 from repro_torch.serving.engine import (SamplingParams, ServingEngine,
                                         make_mixed_quant_state,
                                         make_uniform_quant_state)
+from repro_torch.serving.window import WindowSpec
 
 pytestmark = pytest.mark.gpu
 
@@ -178,6 +182,116 @@ def test_paged_attention_quant_kernel_matches_plain(cuda, bits, hd, softcap):
     assert float((got - want).abs().max()) <= tol
     assert float((got - f32).abs().max()) <= K2B_F32_RTOL * float(
         vd.abs().max())
+
+
+# (window, sinks in tokens) at bs = 8, positions up to 47: binding with
+# sinks, binding without, sinks covering a block in part, not binding
+WINDOW_CASES = [(12, 8), (12, 0), (13, 11), (4096, 0)]
+
+
+def _evict(table, pos, window, sinks, bs=8):
+    """The table after the engine's out-of-window eviction: blocks wholly
+    outside the sinks and the window are -1, so every -1 lies outside the
+    live span (where the plain version masks what it gathers)."""
+    sink_blocks = -(-sinks // bs)
+    out = table.clone()
+    for i, p in enumerate(pos.tolist()):
+        out[i, sink_blocks:max((p - window + 1) // bs, sink_blocks)] = -1
+    return out
+
+
+@pytest.mark.parametrize("window, sinks", WINDOW_CASES)
+@pytest.mark.parametrize("pool", ["bf16", "fp32", "int8", "int4"])
+def test_paged_attention_window_kernel_matches_plain(cuda, pool, window,
+                                                     sinks):
+    """K2c on every pool kind against its plain version, at K2a's and
+    K2b's tolerances; under a window that does not bind it gives K2a's or
+    K2b's result bit for bit, and each launch counts as K2c's only."""
+    grp, hd = 4, 64
+    if pool in ("int8", "int4"):
+        (kc, ks), (vc, vs), table, pos, (kd, vd) = _quant_pools(
+            int(pool[-1]), hd, seed=window + sinks)
+        scales = {"k_scale": ks, "v_scale": vs}
+        wrapper, plain_kernel = paged_attention_quant_window, \
+            paged_attention_quant
+    else:
+        (kc, vc, table, pos), scales = _float_pools(
+            getattr(torch, {"bf16": "bfloat16", "fp32": "float32"}[pool]),
+            hd, seed=window + sinks), {}
+        kd, vd = kc.float(), vc.float()
+        wrapper, plain_kernel = paged_attention_window, paged_attention
+    table = _evict(table, pos, window, sinks)
+    g = torch.Generator(device=cuda).manual_seed(window)
+    q = torch.randn((table.shape[0], kc.shape[2], grp, hd), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    win = {"window": window, "sinks": sinks}
+    counts = (wrapper.launches, plain_kernel.launches)
+    if scales:
+        got = wrapper(q, kc, vc, scales["k_scale"], scales["v_scale"], table,
+                      pos, **win)
+    else:
+        got = wrapper(q, kc, vc, table, pos, **win)
+    want = paged_attention_ref(q, kc, vc, table, pos, **win, **scales)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, plain_kernel.launches) \
+        == (counts[0] + 1, counts[1])
+    if scales:
+        f32 = paged_attention_ref(q.float(), kc, vc, table, pos, **win,
+                                  **scales)
+        tol = bf16_rounding_tolerance(q, kd, vd, table, pos, **win)
+        assert float((got - f32).abs().max()) <= K2B_F32_RTOL * float(
+            vd.abs().max())
+    else:
+        tol = K2_TOL_FACTOR * float(vd.abs().max()) + 1e-5
+    assert float((got - want).abs().max()) <= tol
+    if window > int(pos.max()):
+        unwindowed = plain_kernel(q, kc, vc, *scales.values(), table, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(got, unwindowed)
+
+
+def _float_pools(dtype, hd, b=5, kvh=2, bs=8, mb=6, seed=0):
+    """Random float pools and a table with every -1 past pos."""
+    nb = b * mb + 1
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, mb * bs, b).astype(np.int32)
+    pos[0], pos[1] = mb * bs - 1, 0
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    table = np.full((b, mb), -1, np.int32)
+    for i, p in enumerate(pos):
+        table[i, :p // bs + 1] = perm[i * mb:i * mb + p // bs + 1]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kp, vp = (torch.randn((nb, bs, kvh, hd), generator=g,
+                          device="cuda").to(dtype) for _ in range(2))
+    return kp, vp, torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda()
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_windowed_engine_on_card_runs_through_k2c(cuda, kv_dtype):
+    """ServingEngine(attention_window=WindowSpec(12, 1)) on the card: every
+    decode attention is a K2c launch (none of K2a/K2b), one sync per
+    tick, and every block back at the end."""
+    cfg = get_smoke_config("tinyllama-1.1b")
+    params = _to(tfm.init_params(cfg, 0, device="cpu"), cuda)
+    eng = ServingEngine(cfg, params, slots=3, max_seq=64, kv_dtype=kv_dtype,
+                        attention_window=WindowSpec(12, 1),
+                        quant_state=make_uniform_quant_state(cfg, params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (3, 30, 20, 9)]
+    k2c = paged_attention_window if kv_dtype == "bf16" \
+        else paged_attention_quant_window
+    for fn in (paged_attention, paged_attention_quant, paged_attention_window,
+               paged_attention_quant_window):
+        fn.launches = 0
+    res = eng.generate(prompts, SamplingParams(max_new=12))
+    st = eng.stats
+    assert all(r.finish_reason == "length" and len(r.tokens) == 12
+               and all(0 <= t < cfg.vocab_size for t in r.tokens)
+               for r in res)
+    assert st["tick_syncs"] == st["decode_ticks"]
+    assert k2c.launches == cfg.n_layers * st["decode_ticks"]
+    assert paged_attention.launches == paged_attention_quant.launches == 0
+    assert int(eng.alloc["n_free"]) == eng.num_blocks - 1
 
 
 def test_engine_on_card_runs_through_the_kernels(cuda):

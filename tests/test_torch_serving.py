@@ -458,7 +458,6 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(smoke):
     ({"kv_layout": "ring"}, "item 10"),
     ({"act_bits": 8}, "item 9"),
     ({"prefill_chunk_tokens": 16}, "item 12"),
-    ({"attention_window": 16}, "item 13"),
     ({"num_blocks": 5}, "item 11"),
 ])
 def test_unported_engine_options_raise(smoke, kwargs, item):
