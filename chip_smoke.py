@@ -20,14 +20,18 @@ Phases, in order; any failure exits non-zero:
                  2/4/8-bit state over int8 and int4 pools; then
                  [parity-window]: the uniform state under WindowSpec(12, 1)
                  (40-token prompt, eviction before the decode) over bf16
-                 and int8 pools.
+                 and int8 pools; then [parity-int]: the uniform/bf16 and
+                 mixed/int4 states with act_bits=8 (integer GEMMs; the same
+                 activation specs on both sides).
   5. serve    -- full tinyllama-1.1b (22 layers, random seeded weights, int8
                  per-channel export, paged bf16 KV) through ServingEngine:
                  12 greedy requests on 8 slots; launch counters must equal
                  what the path implies and the tick must sync the host once.
   6. profile  -- a few more full-batch decode ticks on the same engine: host
-                 wall per tick, then device time by kernel (torch.profiler)
-                 and the device's idle share.
+                 wall per tick, one tick under the sync debug mode (exactly
+                 one synchronizing operation, the tick's host transfer),
+                 then device time by kernel (torch.profiler) and the
+                 device's idle share.
   7. mixed serve -- the same requests through the mixed 2/4/8-bit export
                  (2- and 4-bit sites packed) over an int4 KV pool, with its
                  exact launch counts, the export's and the KV cache's device
@@ -39,6 +43,15 @@ Phases, in order; any failure exits non-zero:
                  none, one sync per tick, at most max_live_blocks(256, 2, 8)
                  = 35 table entries per live slot after every tick, no block
                  leaked; then its profile.
+ 7c. serve-int -- fully-integer serving (slice 5, act_bits=8): the
+                 uniform/bf16 cell's requests with every matmul input
+                 quantized per tensor and each GEMM an int8 x int8 product
+                 summed in int32: K5 exactly 155 launches per forward, K1
+                 none, K2a n_layers per tick, one sync per tick, quant_report
+                 with every GEMM input integer and the uniform-int8 BOPs;
+                 then serve-int-mixed, the mixed/int4 cell the same way (K5
+                 44 and K6 111 per forward, K2b n_layers per tick, BOPs
+                 below uniform); each with its profile.
   8. train-parity -- one CGMQ step of a 2-layer full-width model on the CPU
                  (plain versions) and on the card (K3), same state: loss,
                  gradient norms per leaf and new gates, each against a
@@ -53,7 +66,11 @@ Phases, in order; any failure exits non-zero:
  10. train->serve -- the certified state exported to int codes and served
                  (2 greedy requests) through ServingEngine on the card.
 
-The kernels phase also holds K3 (fused gated fake-quant) bit for bit
+The kernels phase also holds K5 and K6 (int8 x int8 GEMMs summed in int32,
+slice 5) bit for bit against their plain versions at every GEMM shape of
+the int cells, with both activation loaders (int8 codes, and fp32
+activations quantized in the kernel), and K6 bit for bit against K5 on the
+unpacked codes. It holds K3 (fused gated fake-quant) bit for bit
 against its plain version at the training step's shapes, and K2c
 (windowed paged attention) against its plain version on bf16, fp32, int8
 and int4 pools under binding windows with and without sinks, sinks that
@@ -97,6 +114,12 @@ PARITY_WINDOW, PARITY_WINDOW_SINK_BLOCKS, PARITY_WINDOW_PLEN = 12, 1, 40
 # tensor cores. Both kernels compute in fp32 on the CUDA cores.
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+# int8 tensor-core peak (dense): the bound of the integer GEMMs' operations
+INT8_OPS_S = 1979e12
+# slice 5: the activation width of the integer cells
+INT_ACT_BITS = 8
+# torch._int_mm, the integer GEMMs' library yardstick, needs M > 16
+INT_MM_MIN_M = 32
 
 # K1 tolerance: the kernel reassociates an fp32 sum of up to K = 5632 terms
 # (scale * sum(x * codes) + bias * rowsum against x @ (codes*scale + bias)).
@@ -224,9 +247,9 @@ def copies_past_l2(nbytes: int, limit: int = 256) -> int:
     return max(1, min(limit, math.ceil(120e6 / max(nbytes, 1))))
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOP_S):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / FP32_FLOP_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -447,6 +470,159 @@ def k4_case(m: int, k: int, n: int, bits: int, gen, card: str):
           f"{'ok' if ok else 'FAIL'}; kernel {res['ms']:.4f} ms, K1 "
           f"{res['k1_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
           f"(x @ w_fp32) {res['library_ms']:.4f} ms, bound "
+          f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}) [{card}]")
+    return res
+
+
+def _int_operands(m: int, k: int, n: int, bits: int, gen):
+    """fp32 activations with their 8-bit signed grid, their codes and row
+    sums (plain version), ``bits``-bit weight codes and random epilogue
+    vectors, on the card."""
+    import torch
+
+    from repro_torch.core.quantizer import affine_grid
+    from repro_torch.kernels.quant_matmul.ref import quantize_act_ref
+
+    dev = "cuda"
+    x = torch.randn((m, k), generator=gen, device=dev) * 1.5
+    beta = torch.tensor(4.0, device=dev)
+    s, _ = affine_grid(INT_ACT_BITS, beta, True)
+    grid = torch.stack([-beta, beta, s])
+    qx, rowsum = quantize_act_ref(x, grid, INT_ACT_BITS)
+    half = 1 << (bits - 1)
+    codes = torch.randint(-half, half, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+    es = torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-5
+    eb = (torch.rand((n,), generator=gen, device=dev) - 0.5) * 2e-4
+    cst = torch.rand((n,), generator=gen, device=dev) - 0.5
+    return x, grid, qx, rowsum, codes, es, eb, cst
+
+
+def _int_mm_ms(qx, codes):
+    """``torch._int_mm`` (int8 x int8 -> int32, no epilogue) on the same
+    codes, at M = max(M, INT_MM_MIN_M) (it needs M > 16); None where K or N
+    is not a multiple of 8, which it refuses."""
+    import torch
+
+    m, k = qx.shape
+    n = codes.shape[1]
+    if k % 8 or n % 8:
+        return None, m
+    mm = max(m, INT_MM_MIN_M)
+    a = torch.zeros((mm, k), dtype=torch.int8, device=qx.device)
+    a[:m] = qx
+    cc = [codes.clone() for _ in range(copies_past_l2(codes.numel()))]
+    it = iter(range(1 << 30))
+    return time_ms(lambda: torch._int_mm(a, cc[next(it) % len(cc)])), mm
+
+
+def k5_case(m: int, k: int, n: int, gen, card: str):
+    """K5 against its plain version at (M, K, N), bit for bit, with both
+    loaders: int8 activation codes with their row sums (the TPU kernel's
+    contract) and fp32 activations quantized in the kernel (the serving
+    path's launch, the one timed). Returns a result dict."""
+    import torch
+
+    from repro_torch.kernels.quant_matmul.quant_matmul import int_matmul
+    from repro_torch.kernels.quant_matmul.ref import (int_matmul_ref,
+                                                      quantize_act_ref)
+
+    x, grid, qx, rowsum, codes, es, eb, cst = _int_operands(m, k, n, 8, gen)
+    act = (grid, INT_ACT_BITS)
+    want = int_matmul_ref(qx, codes, es, eb, rowsum, cst)
+    got = int_matmul(qx, codes, es, eb, rowsum, cst)
+    fused = int_matmul(x, codes, es, eb, None, cst, act=act)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum()) + int((fused != want).sum())
+    err = max(float((got - want).abs().max()),
+              float((fused - want).abs().max()))
+    res = {"shape": (m, k, n), "mismatches": mismatches, "max_abs_err": err,
+           "ok": mismatches == 0}
+
+    cc = [codes.clone() for _ in range(copies_past_l2(codes.numel()))]
+    it = iter(range(1 << 30))
+    res["ms"] = time_ms(lambda: int_matmul(
+        x, cc[next(it) % len(cc)], es, eb, None, cst, act=act))
+    res["codes_in_ms"] = time_ms(lambda: int_matmul(
+        qx, cc[next(it) % len(cc)], es, eb, rowsum, cst))
+
+    def plain():
+        q, r = quantize_act_ref(x, grid, INT_ACT_BITS)
+        return int_matmul_ref(q, cc[next(it) % len(cc)], es, eb, r, cst)
+
+    res["plain_ms"] = time_ms(plain)
+    res["library_ms"], res["library_m"] = _int_mm_ms(qx, codes)
+    res["bytes"] = 4 * m * k + k * n + 12 * n + 12 + 4 * m * n
+    res["flops"] = 2.0 * m * n * k
+    res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], res["flops"],
+                                                INT8_OPS_S)
+    lib = "n/a (K, N not multiples of 8)" if res["library_ms"] is None \
+        else f"{res['library_ms']:.4f} ms at M={res['library_m']}"
+    print(f"[kernels] int_matmul M={m} K={k} N={n}: {mismatches} mismatches "
+          f"against the plain version in 2 x {m * n} elements (bit for bit)"
+          f" -> {'ok' if res['ok'] else 'FAIL'}; kernel {res['ms']:.4f} ms "
+          f"(int8 codes in: {res['codes_in_ms']:.4f} ms), plain "
+          f"{res['plain_ms']:.4f} ms, library (torch._int_mm) {lib}, bound "
+          f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}) [{card}]")
+    return res
+
+
+def k6_case(m: int, k: int, n: int, bits: int, gen, card: str):
+    """K6 against its plain version, and against K5 on the unpacked codes,
+    bit for bit, at (M, K, N) and ``bits``, with both loaders; timed with
+    the fp32 loader. Returns a result dict."""
+    import torch
+
+    from repro_torch.kernels.quant_matmul.quant_matmul import (
+        int_matmul, int_matmul_packed)
+    from repro_torch.kernels.quant_matmul.ref import (int_matmul_packed_ref,
+                                                      quantize_act_ref)
+    from repro_torch.quant.pack import pack_codes
+
+    x, grid, qx, rowsum, codes, es, eb, cst = _int_operands(m, k, n, bits,
+                                                            gen)
+    packed = pack_codes(codes, bits)
+    act = (grid, INT_ACT_BITS)
+    want = int_matmul_packed_ref(qx, packed, es, eb, rowsum, cst, bits=bits,
+                                 k=k)
+    got = int_matmul_packed(qx, packed, es, eb, rowsum, cst, bits=bits, k=k)
+    fused = int_matmul_packed(x, packed, es, eb, None, cst, bits=bits, k=k,
+                              act=act)
+    k5 = int_matmul(x, codes, es, eb, None, cst, act=act)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum()) + int((fused != want).sum())
+    k5_mismatches = int((fused != k5).sum())
+    err = max(float((got - want).abs().max()),
+              float((fused - want).abs().max()))
+    res = {"shape": (m, k, n), "bits": bits, "mismatches": mismatches,
+           "k5_mismatches": k5_mismatches, "max_abs_err": err,
+           "ok": mismatches == 0 and k5_mismatches == 0}
+
+    pc = [packed.clone() for _ in range(copies_past_l2(packed.numel()))]
+    it = iter(range(1 << 30))
+    res["ms"] = time_ms(lambda: int_matmul_packed(
+        x, pc[next(it) % len(pc)], es, eb, None, cst, bits=bits, k=k,
+        act=act))
+
+    def plain():
+        q, r = quantize_act_ref(x, grid, INT_ACT_BITS)
+        return int_matmul_packed_ref(q, pc[next(it) % len(pc)], es, eb, r,
+                                     cst, bits=bits, k=k)
+
+    res["plain_ms"] = time_ms(plain)
+    res["library_ms"], res["library_m"] = _int_mm_ms(qx, codes)
+    res["bytes"] = 4 * m * k + packed.numel() + 12 * n + 12 + 4 * m * n
+    res["flops"] = 2.0 * m * n * k
+    res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], res["flops"],
+                                                INT8_OPS_S)
+    lib = "n/a (K, N not multiples of 8)" if res["library_ms"] is None \
+        else f"{res['library_ms']:.4f} ms at M={res['library_m']}"
+    print(f"[kernels] int_matmul_packed {bits}-bit M={m} K={k} N={n}: "
+          f"{mismatches} mismatches against the plain version in 2 x "
+          f"{m * n} elements (bit for bit), {k5_mismatches} against K5 on "
+          f"the unpacked codes -> {'ok' if res['ok'] else 'FAIL'}; kernel "
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
+          f"(torch._int_mm, unpacked codes) {lib}, bound "
           f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}) [{card}]")
     return res
 
@@ -828,20 +1004,36 @@ def phase_kernels(cfg, m_prefill: int, card: str):
           for m, n, dt in k3_shapes(cfg)}
     for dt in ("float32", "bfloat16"):
         k3[(3, 101, dt)] = k3_case(3, 101, dt, gen, card)
+    k5 = {}
+    for m in (SLOTS, m_prefill):
+        for k, n in qkvo:
+            k5[(m, k, n)] = k5_case(m, k, n, gen, card)
+    k5[(3, 101, 37)] = k5_case(3, 101, 37, gen, card)
+    k6 = {}
+    for m in (SLOTS, m_prefill):
+        for k, n, bits in mixed_k4_shapes(cfg):
+            k6[(m, k, n, bits)] = k6_case(m, k, n, bits, gen, card)
+    for bits in (2, 4):
+        k6[(3, 101, 37, bits)] = k6_case(3, 101, 37, bits, gen, card)
     bad = [r["shape"] for r in k1.values() if not r["ok"]] \
         + [f"softcap={r['softcap']}" for r in k2 if not r["ok"]] \
         + [(r["shape"], r["bits"]) for r in k4.values() if not r["ok"]] \
         + [r["kv_dtype"] for r in k2b.values() if not r["ok"]] \
         + [(r["shape"], r["dtype"]) for r in k3.values() if not r["ok"]] \
-        + [key for key, r in k2c.items() if not r["ok"]]
+        + [key for key, r in k2c.items() if not r["ok"]] \
+        + [("int_matmul",) + key for key, r in k5.items() if not r["ok"]] \
+        + [("int_matmul_packed",) + key for key, r in k6.items()
+           if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
     n_eq = sum(r["k1_bit_equal"] for r in k4.values())
     print(f"[kernels] K4 bit-equal to K1 on the unpacked codes in {n_eq} of "
           f"{len(k4)} cases; K3 bit-equal to its plain version in all "
           f"{len(k3)} cases; K2c under a window that does not bind "
           f"bit-equal to K2a/K2b in all "
-          f"{sum('bit_equal' in r for r in k2c.values())} cases [{card}]")
-    return k1, k2, k4, k2b, k3, k2c
+          f"{sum('bit_equal' in r for r in k2c.values())} cases; K5 and K6 "
+          f"bit-equal to their plain versions in all {len(k5) + len(k6)} "
+          f"cases, K6 to K5 on the unpacked codes in all {len(k6)} [{card}]")
+    return k1, k2, k4, k2b, k3, k2c, k5, k6
 
 
 def _to(tree, dev):
@@ -891,7 +1083,8 @@ def _cpu_rounding(*, gemm_fp64: bool = False, attention_fp32: bool = False):
 
 
 def phase_parity(cfg, card: str, state: str = "uniform",
-                 kv_dtype: str = "bf16", windowed: bool = False):
+                 kv_dtype: str = "bf16", windowed: bool = False,
+                 act_bits: int | None = None):
     """One prefill_slot and one decode_step of a 2-layer full-width model on
     the CPU (plain versions) and on the card (kernels), same weights: the
     uniform int8 or the mixed 2/4/8-bit state, over a ``kv_dtype`` pool. A
@@ -902,10 +1095,16 @@ def phase_parity(cfg, card: str, state: str = "uniform",
     out-of-window eviction before the decode step, so the decode runs K2c
     over a table with evicted blocks.
 
-    For the mixed state the CPU runs attend in fp32 (``_cpu_rounding``):
-    on that ill-conditioned model the plain attention's bf16 roundings of
-    K, V and the probabilities alone move the decode logits by up to ~40%
-    of their max, while the kernels keep them in fp32 by design."""
+    ``act_bits`` ([parity-int]): integer GEMMs on both sides (K5/K6 on the
+    card), on the activation specs ``make_act_specs`` calibrates once on
+    the CPU and hands to every run, so both quantize on the same grids.
+
+    For the mixed state and the integer GEMMs the CPU runs attend in fp32
+    (``_cpu_rounding``): on the ill-conditioned mixed model the plain
+    attention's bf16 roundings of K, V and the probabilities alone move the
+    decode logits by up to ~40% of their max, while the kernels keep them
+    in fp32 by design; with integer GEMMs, which are exact on both sides,
+    the attention is the only place the two runs round apart."""
     import numpy as np
     import torch
 
@@ -914,7 +1113,9 @@ def phase_parity(cfg, card: str, state: str = "uniform",
     from repro_torch.quant import specs_from_state
     from repro_torch.quant.kv import KVQuantSpec
     from repro_torch.serving import kv_pool
+    from repro_torch.quant import ActQuantSpec
     from repro_torch.serving.engine import (export_int_model,
+                                            make_act_specs,
                                             make_mixed_quant_state,
                                             make_uniform_quant_state)
     from repro_torch.serving.window import WindowSpec, first_live_block
@@ -934,8 +1135,10 @@ def phase_parity(cfg, card: str, state: str = "uniform",
     rng = np.random.default_rng(SEED + 2)
     toks = np.zeros((1, _bucket(plen)), np.int64)
     toks[0, :plen] = rng.integers(0, cfg2.vocab_size, plen)
+    act_cpu = {} if act_bits is None else make_act_specs(cfg2, params_cpu,
+                                                        act_bits)
     out = {}
-    attention_fp32 = state == "mixed"
+    attention_fp32 = state == "mixed" or act_bits is not None
     runs = {"cpu": {"attention_fp32": attention_fp32},
             "cpu_fp64_sums": {"gemm_fp64": True,
                               "attention_fp32": attention_fp32},
@@ -947,11 +1150,14 @@ def phase_parity(cfg, card: str, state: str = "uniform",
         params = _to(params_cpu, dev)
         qs = {**qs_cpu, "gates": _to(qs_cpu["gates"], dev),
               "betas": _to(qs_cpu["betas"], dev)}
+        act = {k: ActQuantSpec(a.bits, a.beta.to(dev), a.signed)
+               for k, a in act_cpu.items()}
         with _cpu_rounding(**rounding):
             qweights, _ = export_int_model(params, cfg2, qs, device=dev)
             qc = QuantContext("serve", cfg=qs["qcfg"], qweights=qweights,
-                              specs=specs_from_state(qs["gates"], qs["betas"],
-                                                     qs["signed"]))
+                              specs={**specs_from_state(
+                                  qs["gates"], qs["betas"], qs["signed"]),
+                                  **act})
             cache = tfm.init_paged_cache(cfg2, slots, slots * mb + 1, BLOCK,
                                          kv_spec=kv_spec, device=dev)
             alloc = kv_pool.init_alloc(slots * mb + 1, slots, mb, device=dev)
@@ -977,10 +1183,13 @@ def phase_parity(cfg, card: str, state: str = "uniform",
         del params, qweights, qc, cache
     label = f"{state} state, {kv_dtype} KV" + (
         ", CPU attention in fp32" if attention_fp32 else "") + (
+        f", act_bits {act_bits} ({len(act_cpu)} .in specs)"
+        if act_bits is not None else "") + (
         f", window {spec.mask} over a {plen}-token prompt, "
         f"{int((alloc['table'][0] >= 0).sum())} of {-(-(plen + 1) // BLOCK)}"
         f" blocks left after eviction" if spec is not None else "")
-    tag = "[parity-window]" if windowed else "[parity]"
+    tag = "[parity-window]" if windowed else "[parity-int]" \
+        if act_bits is not None else "[parity]"
     for name, i in (("prefill", 0), ("decode", 1)):
         ref, got = out["cpu"][i], out["cuda"][i]
         check(bool(torch.isfinite(got).all()), f"{name} logits not finite")
@@ -1021,10 +1230,12 @@ def _counters() -> dict:
         paged_attention, paged_attention_quant, paged_attention_quant_window,
         paged_attention_window)
     from repro_torch.kernels.quant_matmul.quant_matmul import (
-        quant_matmul, quant_matmul_packed)
+        int_matmul, int_matmul_packed, quant_matmul, quant_matmul_packed)
 
     return {"quant_matmul": quant_matmul,
             "quant_matmul_packed": quant_matmul_packed,
+            "int_matmul": int_matmul,
+            "int_matmul_packed": int_matmul_packed,
             "paged_attention": paged_attention,
             "paged_attention_quant": paged_attention_quant,
             "paged_attention_window": paged_attention_window,
@@ -1033,11 +1244,15 @@ def _counters() -> dict:
 
 
 def phase_serve(cfg, prompts, card: str, *, mixed: bool = False,
-                params=None):
+                params=None, act_bits: int | None = None):
     """The 22-layer serve: the uniform int8 state over a bf16 pool (slice
-    1), or the mixed 2/4/8-bit state over a MIXED_KV pool (slice 2). Every
-    launch counter is set to 0 just before ``generate`` and read just after;
-    they must equal what the path implies."""
+    1), or the mixed 2/4/8-bit state over a MIXED_KV pool (slice 2); with
+    ``act_bits`` ([serve-int], [serve-int-mixed], slice 5) through the
+    integer GEMMs, and its ``quant_report`` checked: every GEMM input served
+    integer at ``act_bits``, the uniform state's BOPs the uniform-int8 ones,
+    the mixed state's below. Every launch counter is set to 0 just before
+    ``generate`` and read just after; they must equal what the path
+    implies."""
     import torch
 
     from repro_torch.models import transformer as tfm
@@ -1052,9 +1267,37 @@ def phase_serve(cfg, prompts, card: str, *, mixed: bool = False,
     kv_dtype = MIXED_KV if mixed else "bf16"
     eng = ServingEngine(cfg, params, slots=SLOTS, max_seq=MAX_SEQ,
                         quant_state=make_state(cfg, params),
-                        block_size=BLOCK, kv_dtype=kv_dtype)
+                        block_size=BLOCK, kv_dtype=kv_dtype,
+                        act_bits=act_bits)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    tag = "mixed 2/4/8-bit" if mixed else "uniform int8"
+    phase = "[serve]"
+    if act_bits is not None:
+        phase = "[serve-int-mixed]" if mixed else "[serve-int]"
+        tag += f", act_bits {act_bits}"
+        rep = eng.quant_report()
+        acts, bops = rep["acts"], rep["bops"]
+        print(f"{phase} quant_report acts: {acts['covered']} of "
+              f"{acts['total']} GEMM inputs served integer, fallback "
+              f"{acts['fallback_sites']}, widths "
+              f"{sorted(set(acts['bits'].values()))}; bops model "
+              f"{bops['model']:.6e}, uniform int8 {bops['uniform_int8']:.6e},"
+              f" rbop {bops['rbop']:.6f}; export bytes "
+              f"{rep['totals']['bytes_device']} [{card}]")
+        check(acts["covered"] == acts["total"] == 7 + 1
+              and acts["fallback_sites"] == []
+              and set(acts["bits"].values()) == {act_bits},
+              f"quant_report acts {acts}")
+        if mixed:
+            check(bops["model"] < bops["uniform_int8"],
+                  f"mixed BOPs {bops['model']} not below uniform int8 "
+                  f"{bops['uniform_int8']}")
+        else:
+            check(abs(bops["model"] - bops["uniform_int8"])
+                  <= 1e-6 * bops["uniform_int8"],
+                  f"uniform BOPs {bops['model']} != uniform int8 "
+                  f"{bops['uniform_int8']}")
     export = {"codes": sum(q.codes_bytes() for q in eng.qweights.values()),
               "aux": sum(q.aux_bytes() for q in eng.qweights.values())}
     pool_bytes = sum(t.numel() * t.element_size()
@@ -1073,12 +1316,15 @@ def phase_serve(cfg, prompts, card: str, *, mixed: bool = False,
     layers = cfg.n_layers
     forwards = st["prefill_forwards"] + st["decode_ticks"]
     want = dict.fromkeys(counters, 0)
-    if mixed:   # 8-bit attn_o, mlp_down: K1; the five packed sites: K4
-        want.update({"quant_matmul": 2 * layers * forwards,
-                     "quant_matmul_packed": (5 * layers + 1) * forwards,
+    # integer GEMMs: K5 takes K1's sites, K6 K4's
+    k8, kp = ("int_matmul", "int_matmul_packed") if act_bits is not None \
+        else ("quant_matmul", "quant_matmul_packed")
+    if mixed:   # 8-bit attn_o, mlp_down: K1/K5; the five packed: K4/K6
+        want.update({k8: 2 * layers * forwards,
+                     kp: (5 * layers + 1) * forwards,
                      "paged_attention_quant": layers * st["decode_ticks"]})
     else:
-        want.update({"quant_matmul": (7 * layers + 1) * forwards,
+        want.update({k8: (7 * layers + 1) * forwards,
                      "paged_attention": layers * st["decode_ticks"]})
     for r in results:
         check(r.finish_reason == "length" and len(r.tokens) == MAX_NEW,
@@ -1092,8 +1338,7 @@ def phase_serve(cfg, prompts, card: str, *, mixed: bool = False,
           f"launch counters {launches}, the path implies {want}")
     ttft = [r.first_token_s - r.submit_s for r in eng.finished]
     decode_tokens = st["generated_tokens"] - len(results)
-    tag = "mixed 2/4/8-bit" if mixed else "uniform int8"
-    print(f"[serve] {tag}, {kv_dtype} KV: tinyllama-1.1b {layers} layers, "
+    print(f"{phase} {tag}, {kv_dtype} KV: tinyllama-1.1b {layers} layers, "
           f"{SLOTS} slots, {len(prompts)} requests, prompts "
           f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
           f"max_new {MAX_NEW}: setup {setup_s:.2f} s; export on the card: "
@@ -1101,10 +1346,10 @@ def phase_serve(cfg, prompts, card: str, *, mixed: bool = False,
           f"{(export['codes'] + export['aux']) / 1e9:.4f} GB; KV pool "
           f"{kv_per_token:.0f} B per cached token "
           f"(kv_report {eng.kv_report()['bytes_per_cached_token']} B)")
-    print(f"[serve] stats {json.dumps(st)}")
-    print(f"[serve] launches {launches} == expected {want}; "
+    print(f"{phase} stats {json.dumps(st)}")
+    print(f"{phase} launches {launches} == expected {want}; "
           f"tick_syncs == decode_ticks == {st['decode_ticks']}")
-    print(f"[serve] {tag}: TTFT mean {sum(ttft) / len(ttft):.4f} s max "
+    print(f"{phase} {tag}: TTFT mean {sum(ttft) / len(ttft):.4f} s max "
           f"{max(ttft):.4f} s; decode {decode_tokens / st['decode_time_s']:.1f}"
           f" tok/s ({st['decode_time_s'] / st['decode_ticks'] * 1e3:.3f} ms "
           f"per tick); prefill {st['prefill_time_s']:.3f} s; wall "
@@ -1209,11 +1454,33 @@ def phase_serve_window(cfg, card: str, params):
     return eng, prompts, launches
 
 
+def _synchronizing_ops(fn) -> int:
+    """Synchronizing CUDA operations that ``fn()`` runs, as PyTorch's sync
+    debug mode reports them (one warning each)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        fn()
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def _one_sync(syncs: int, cell: str):
+    check(syncs == 1, f"{cell}: a decode tick ran {syncs} synchronizing "
+          f"CUDA operations, not the one host transfer")
+
+
 def phase_profile(eng, prompts, card: str, ticks: int = 5):
     """Where a decode tick's time goes: ``ticks`` full-batch ticks timed on
-    the host without the profiler, then ``ticks`` more under
+    the host without the profiler, one tick under the sync debug mode
+    (which counts its synchronizing operations), then ``ticks`` more under
     ``torch.profiler`` for the device time by kernel. The idle share is
-    1 - device busy / unprofiled wall."""
+    1 - device busy / unprofiled wall. Returns the synchronizing operations
+    of that one tick."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1222,13 +1489,14 @@ def phase_profile(eng, prompts, card: str, ticks: int = 5):
 
     for i, p in enumerate(prompts[:SLOTS]):
         eng.submit(Request(rid=1_000_000 + i, prompt=p,
-                           max_new=2 * ticks + 2))
+                           max_new=2 * ticks + 3))
     eng.step()                       # the admission wave and a first tick
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(ticks):
         eng.step()                   # each step ends in its one host sync
     wall_ms = (time.perf_counter() - t0) / ticks * 1e3
+    syncs = _synchronizing_ops(eng.step)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(ticks):
@@ -1257,14 +1525,16 @@ def phase_profile(eng, prompts, card: str, ticks: int = 5):
     busy = sum(by_kind.values())
     tag = f"{eng.kv_dtype} KV, " + ("mixed" if any(
         q.packed for q in eng.qweights.values()) else "uniform int8") + (
-        f", window {eng.window_spec.mask}" if eng.window_spec else "")
+        f", window {eng.window_spec.mask}" if eng.window_spec else "") + (
+        f", act_bits {eng.act_bits}" if eng.act_bits else "")
     print(f"[profile] {tag}: {aten_calls / ticks:.0f} ATen calls per decode "
-          f"tick (nested included) for {SLOTS} slots")
+          f"tick (nested included) for {SLOTS} slots; {syncs} synchronizing "
+          f"CUDA operation(s) in one decode tick (sync debug mode)")
     if busy == 0:
         print(f"[profile] {tag}: decode tick {wall_ms:.3f} ms on the host "
               f"clock; device time not measured (the profiler saw no "
               f"kernels) [{card}]")
-        return
+        return syncs
     top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
     print(f"[profile] {tag}: decode tick ({SLOTS} slots): host wall "
           f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
@@ -1272,6 +1542,7 @@ def phase_profile(eng, prompts, card: str, ticks: int = 5):
               f"{k} {v:.3f} ms" for k, v in by_kind.items()) + f" [{card}]")
     print(f"[profile] {tag}: top other kernels per tick: " + "; ".join(
         f"{k} {v:.3f} ms" for k, v in top))
+    return syncs
 
 
 def _train_recipe(cfg, batch: int, seq: int):
@@ -1691,8 +1962,9 @@ def phase_train_serve(cfg, state, recipe, card: str):
           f"serve launches {launches}, expected {want}")
 
 
-def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, launches, mixed_launches,
-                 train_launches, window_launches):
+def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, launches,
+                 mixed_launches, train_launches, window_launches,
+                 int_launches, int_mixed_launches):
     """One entry per kernel. quant_matmul: one decode step's K1 work on the
     uniform path (its 155 GEMMs at M = slots, each shape times its count
     per step); quant_matmul_packed: one decode step's K4 work on the mixed
@@ -1700,8 +1972,13 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, launches, mixed_launches,
     decode shape (K2b over the mixed path's int4 pool); paged_attention_
     window: one K2c launch over a bf16 pool at window 256 + 16 sink tokens,
     positions up to 927; fake_quant: one CGMQ forward's K3 work (its 221
-    launches, each shape times its count). ``launches`` from each kernel's
-    own path: serve, mixed serve, train, serve-window."""
+    launches, each shape times its count); int_matmul: one uniform decode
+    step's K5 work (the 155 GEMMs at M = slots, fp32 activations quantized
+    in the kernel; library: ``torch._int_mm`` at M = 32, which needs
+    M > 16); int_matmul_packed: one mixed decode step's K6 work (its 111
+    packed GEMMs; library: ``torch._int_mm`` on the unpacked codes).
+    ``launches`` from each kernel's own path: serve, mixed serve, train,
+    serve-window, serve-int, serve-int-mixed."""
     per_step = {(cfg.d_model, cfg.n_heads * cfg.head_dim): 2 * cfg.n_layers,
                 (cfg.d_model, cfg.n_kv_heads * cfg.head_dim):
                     2 * cfg.n_layers,
@@ -1720,6 +1997,15 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, launches, mixed_launches,
     rows3 = [(k3[key], c) for key, c in k3_shapes(cfg).items()]
     k3_bound, k3_by = bound_ms(sum(r["bytes"] * c for r, c in rows3),
                                sum(r["flops"] * c for r, c in rows3))
+    rows5 = [(k5[(SLOTS, k, n)], c) for (k, n), c in per_step.items()]
+    k5_bound, k5_by = bound_ms(sum(r["bytes"] * c for r, c in rows5),
+                               sum(r["flops"] * c for r, c in rows5),
+                               INT8_OPS_S)
+    rows6 = [(k6[(SLOTS, k, n, b)], c)
+             for (k, n, b), c in mixed_k4_shapes(cfg).items()]
+    k6_bound, k6_by = bound_ms(sum(r["bytes"] * c for r, c in rows6),
+                               sum(r["flops"] * c for r, c in rows6),
+                               INT8_OPS_S)
     return {"kernels": [
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
@@ -1775,6 +2061,24 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, launches, mixed_launches,
          "plain_ms": sum(r["plain_ms"] * c for r, c in rows3),
          "bound_ms": k3_bound, "bound_by": k3_by,
          "library_ms": sum(r["library_ms"] * c for r, c in rows3)},
+        {"name": "int_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/quant_matmul.cu",
+         "replaces": "src/repro/kernels/quant_matmul/quant_matmul.py:278",
+         "launches": int_launches["int_matmul"],
+         "max_abs_err": max(r["max_abs_err"] for r in k5.values()),
+         "ms": sum(r["ms"] * c for r, c in rows5),
+         "plain_ms": sum(r["plain_ms"] * c for r, c in rows5),
+         "bound_ms": k5_bound, "bound_by": k5_by,
+         "library_ms": sum(r["library_ms"] * c for r, c in rows5)},
+        {"name": "int_matmul_packed", "route": "cuda",
+         "source": "src/repro_torch/csrc/quant_matmul.cu",
+         "replaces": "src/repro/kernels/quant_matmul/quant_matmul.py:349",
+         "launches": int_mixed_launches["int_matmul_packed"],
+         "max_abs_err": max(r["max_abs_err"] for r in k6.values()),
+         "ms": sum(r["ms"] * c for r, c in rows6),
+         "plain_ms": sum(r["plain_ms"] * c for r, c in rows6),
+         "bound_ms": k6_bound, "bound_by": k6_by,
+         "library_ms": sum(r["library_ms"] * c for r, c in rows6)},
     ]}
 
 
@@ -1796,15 +2100,18 @@ def main() -> int:
     cfg = get_config("tinyllama-1.1b")
     prompts = _prompts(cfg.vocab_size)
     m_prefill = max(_bucket(len(p)) for p in prompts)
-    k1, k2, k4, k2b, k3, k2c = phase_kernels(cfg, m_prefill, card)
+    k1, k2, k4, k2b, k3, k2c, k5, k6 = phase_kernels(cfg, m_prefill, card)
     phase_parity(cfg, card)
     for kv_dtype in ("int8", "int4"):
         phase_parity(cfg, card, state="mixed", kv_dtype=kv_dtype)
     for kv_dtype in ("bf16", "int8"):
         phase_parity(cfg, card, kv_dtype=kv_dtype, windowed=True)
+    phase_parity(cfg, card, act_bits=INT_ACT_BITS)
+    phase_parity(cfg, card, state="mixed", kv_dtype=MIXED_KV,
+                 act_bits=INT_ACT_BITS)
     torch.cuda.empty_cache()
     eng, launches, export = phase_serve(cfg, prompts, card)
-    phase_profile(eng, prompts, card)
+    _one_sync(phase_profile(eng, prompts, card), "uniform/bf16")
     params = eng.params
     del eng
     torch.cuda.empty_cache()
@@ -1815,21 +2122,33 @@ def main() -> int:
           f"the uniform int8 export's {uniform_total} B (codes "
           f"{mixed_export['codes']} vs {export['codes']} B) [{card}]")
     check(total < uniform_total, "the mixed export is not smaller")
-    phase_profile(eng, prompts, card)
+    _one_sync(phase_profile(eng, prompts, card), "mixed/int4")
     del eng
     torch.cuda.empty_cache()
     eng, win_prompts, window_launches = phase_serve_window(cfg, card, params)
-    phase_profile(eng, win_prompts, card)
-    del eng, params
+    _one_sync(phase_profile(eng, win_prompts, card), "serve-window")
+    del eng
+    torch.cuda.empty_cache()
+    int_launches = {}
+    for mixed in (False, True):
+        eng, int_launches[mixed], _ = phase_serve(
+            cfg, prompts, card, mixed=mixed, params=params,
+            act_bits=INT_ACT_BITS)
+        _one_sync(phase_profile(eng, prompts, card),
+                  "serve-int-mixed" if mixed else "serve-int")
+        del eng
+        torch.cuda.empty_cache()
+    del params
     torch.cuda.empty_cache()
     phase_train_parity(cfg, card)
     state, recipe, train_launches = phase_train(cfg, card)
     phase_train_serve(cfg, state, recipe, card)
     del state
     print(f"[done] {time.perf_counter() - t_start:.1f} s [{card}]")
-    print(json.dumps(kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, launches,
-                                  mixed_launches, train_launches,
-                                  window_launches)))
+    print(json.dumps(kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6,
+                                  launches, mixed_launches, train_launches,
+                                  window_launches, int_launches[False],
+                                  int_launches[True])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Hand ``repro``'s parameters, quant state and train state to the port,
-and the port's tensors back, through numpy.
+"""Hand ``repro``'s parameters, quant state, activation specs and train
+state to the port, and the port's tensors back, through numpy.
 
 The caller does the JAX-to-numpy step (``jax.tree.map(np.asarray,
 params)``); this module never imports JAX. Parameters keep ``repro``'s
@@ -17,6 +17,7 @@ from repro_torch.core.controller import CGMQState
 from repro_torch.core.sites import QuantConfig
 from repro_torch.device import resolve_device
 from repro_torch.optim.adam import AdamState
+from repro_torch.quant.spec import ActQuantSpec
 from repro_torch.train.state import TrainState
 
 
@@ -51,6 +52,18 @@ def quant_state_from_numpy(gates: dict, betas: dict, signed: dict,
             "gates": {k: _to_tensor(v, dev) for k, v in gates.items()},
             "betas": {k: _to_tensor(v, dev) for k, v in betas.items()},
             "signed": {k: bool(v) for k, v in signed.items()}}
+
+
+def act_specs_from_numpy(specs: dict, device=None) -> dict:
+    """``repro``'s ``{"<site>.in": ActQuantSpec}`` with numpy betas
+    (``jax.tree.map(np.asarray, specs)``) -> the port's ``ActQuantSpec``s,
+    read by attribute (``bits``, ``beta``, ``signed``)."""
+    dev = resolve_device(device)
+    return {k: ActQuantSpec(bits=int(s.bits),
+                            beta=_to_tensor(np.asarray(s.beta, np.float32),
+                                            dev),
+                            signed=bool(s.signed))
+            for k, s in specs.items()}
 
 
 def train_state_from_numpy(state, device=None) -> TrainState:

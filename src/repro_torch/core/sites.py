@@ -5,7 +5,9 @@ Counterpart of ``repro/core/sites.py`` in four of its modes:
   off        -- identity (fp32 warmup, full-precision serving).
   calibrate  -- fp32 forward that records each output activation's range
                 statistics (max, per-channel max, min, mean |a|) in
-                ``act_stats`` (``core.calibration`` runs it).
+                ``act_stats`` (``core.calibration`` runs it), and with
+                ``QuantConfig(quantize_inputs=True)`` each matmul input's
+                per-tensor max, min and mean |x| (the ``.in`` sites).
   train      -- fake quantization from gates and learnable ranges, through
                 ``gates.gated_fake_quant`` (K3 on the card) or the
                 paper-literal residual chain (``impl="residual"``); records
@@ -82,6 +84,9 @@ class QuantConfig:
     input_bits: int = 8             # fixed input quantization (paper §4.2)
     quantize_acts: bool = True
     act_granularity: str | None = None   # defaults to `granularity`
+    # Gate the matmul INPUT activations too (".in" sites, DESIGN.md §16):
+    # per-tensor affine, so the certificate covers w_bits x a_bits x MACs
+    # and serving can run integer GEMMs. Off by default.
     quantize_inputs: bool = False
 
     def __post_init__(self):
@@ -89,10 +94,6 @@ class QuantConfig:
             self.act_granularity = (
                 PER_CHANNEL if self.granularity == PER_WEIGHT
                 else self.granularity)
-        if self.quantize_inputs:
-            raise NotImplementedError(
-                "quantize_inputs ('.in' activation sites) is ported with "
-                "ROADMAP queue 1 item 9 (fully-integer GEMMs)")
 
 
 def _group_shape(granularity: str, full_shape, out_features: int):
@@ -131,6 +132,9 @@ class QuantContext:
         # Per-layer child contexts of scan-stacked serve state, built on
         # first use by ``models.transformer`` and reused by later forwards.
         self.slices: dict[Any, "QuantContext"] = {}
+        # Serve mode: site -> folded integer-GEMM constants (or None),
+        # built on first use by ``int_gemm_plan``.
+        self.plans: dict[str, Any] = {}
 
     def child(self, qweights=None, specs=None, gates=None, ranges=None,
               probes=None) -> "QuantContext":
@@ -218,6 +222,62 @@ class QuantContext:
             return None
         return self.specs.get(self._full(name) + ".in")
 
+    def int_gemm_plan(self, name: str):
+        """The integer GEMM of a serve-mode site with an int-code export
+        and an ``.in`` spec (``kernels.quant_matmul.ops.IntGemmPlan``), or
+        None. Built at the first call and kept on this context, so the
+        constants that depend only on the frozen weight and spec are
+        folded once per site and layer, not once per forward."""
+        if self.mode != "serve":
+            return None
+        full = self._full(name)
+        if full not in self.plans:
+            from repro_torch.kernels.quant_matmul.ops import int_gemm_plan
+
+            qt = self.qweights.get(full + ".w")
+            spec = self.specs.get(full + ".in")
+            self.plans[full] = None if qt is None or spec is None \
+                else int_gemm_plan(qt, spec)
+        return self.plans[full]
+
+    def act_in(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Quantize a matmul INPUT activation (the ``.in`` site, §16).
+
+        Per-tensor affine, gated like any other site. Serve mode reaches
+        this only for sites without an int-code export (``qmatmul`` runs
+        the integer GEMM for the others) and quantizes at the spec, if the
+        site has one; train mode fake-quantizes through the gate (K3 on the
+        card), with its statistic and probe; calibrate mode records the
+        per-tensor range statistics.
+        """
+        key = self._full(name) + ".in"
+        if not self.cfg.enabled:
+            return x
+        if self.mode == "serve":
+            spec = self.specs.get(key)
+            if spec is None:
+                return x
+            return quantize(x, spec.bits, spec.beta, spec.signed)
+        if self.mode == "off" or not self.cfg.quantize_inputs:
+            return x
+        if self.mode == "calibrate":
+            self.act_stats[key] = {
+                "max": torch.amax(torch.abs(x)),
+                "min": torch.amin(x),
+                "mean_abs": torch.mean(torch.abs(x)),
+            }
+            return x
+        # train mode; a state trained before ``.in`` gates existed has none
+        g = self.gates.get(key)
+        if g is None:
+            return x
+        rng = self.ranges[key]
+        self.act_stats[key] = {"mean_abs": self._act_group_stat(x, g)}
+        if key in self.probes:
+            x = x + self.probes[key].expand(x.shape).to(x.dtype)
+        return self._fq(x, self._expand_act_gate(g, x),
+                        self._expand_act_gate(rng["beta"], x), rng["signed"])
+
     def input(self, x: torch.Tensor) -> torch.Tensor:
         """Fixed-width input quantization (paper: 8-bit sensor data), with
         the range taken from the batch itself: ``beta = max|x|``."""
@@ -297,6 +357,12 @@ def init_gates(sites: dict[str, SiteInfo], cfg: QuantConfig, init: float,
             out[s.name + ".a"] = torch.full(_stacked(ashape, s.stack), init,
                                             dtype=torch.float32,
                                             device=device)
+        if cfg.quantize_inputs and s.act_quantized:
+            # ``.in`` sites are per-tensor by contract: the integer GEMM
+            # quantizes the whole input against ONE affine grid (§16)
+            out[s.name + ".in"] = torch.full(_stacked((), s.stack), init,
+                                             dtype=torch.float32,
+                                             device=device)
     return out
 
 
@@ -338,6 +404,12 @@ def init_ranges_from_weights(sites: dict[str, SiteInfo], cfg: QuantConfig,
                                    dtype=torch.float32, device=device),
                 "signed": True,
             }
+        if cfg.quantize_inputs and s.act_quantized:
+            ranges[s.name + ".in"] = {
+                "beta": torch.ones(_stacked((), s.stack),
+                                   dtype=torch.float32, device=device),
+                "signed": True,
+            }
     return ranges
 
 
@@ -352,6 +424,10 @@ def init_probes(sites: dict[str, SiteInfo], cfg: QuantConfig,
             out[s.name + ".a"] = torch.zeros(_stacked(ashape, s.stack),
                                              dtype=torch.float32,
                                              device=device)
+        if cfg.quantize_inputs and s.act_quantized:
+            out[s.name + ".in"] = torch.zeros(_stacked((), s.stack),
+                                              dtype=torch.float32,
+                                              device=device)
     return out
 
 

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.sites import QuantContext
-from repro_torch.kernels.quant_matmul.ops import quant_matmul_qt
+from repro_torch.kernels.quant_matmul.ops import int_gemm, quant_matmul_qt
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -28,16 +28,20 @@ def rms_norm(x, gain, eps=1e-6):
 def qmatmul(qc: QuantContext, name: str, x, w):
     """Quantized matmul over the last axis of ``x``: (..., in) @ (in, out).
 
-    In serve mode a site with an int-code export runs the fused dequant
-    GEMM off its int8 codes (``quant_matmul_qt``: the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU one). Otherwise the weight goes
-    through ``qc.weight`` and the product is bf16 x bf16 with fp32
-    accumulation. Returns bf16.
+    In serve mode a site with an int-code export runs off its codes: with
+    an ``.in`` spec the integer GEMM (``int_gemm``: the activation
+    quantized per tensor, int8 x int8 products summed in int32; K5/K6 for
+    a CUDA tensor), else the fused dequant GEMM (``quant_matmul_qt``:
+    K1/K4), each taking its plain version for a CPU tensor. Otherwise the
+    input goes through ``qc.act_in`` and the weight through ``qc.weight``,
+    and the product is bf16 x bf16 with fp32 accumulation. Returns bf16.
     """
     qw = qc.serving_weight(name)
     if qw is not None:
-        y = quant_matmul_qt(x, qw, act_spec=qc.input_spec(name))
+        plan = qc.int_gemm_plan(name)
+        y = quant_matmul_qt(x, qw) if plan is None else int_gemm(x, plan)
         return y.to(COMPUTE_DTYPE)
+    x = qc.act_in(name, x)
     wq = qc.weight(name, w)
     # bf16 operands are exact in fp32: an fp32 product is bf16 x bf16 with
     # fp32 accumulation

@@ -1,10 +1,11 @@
 """Model-agnostic quantized-weight export (2/4/8-bit storage classes).
 
-Counterpart of ``repro/quant/export.py:export_sites``. ``repro`` captures
-each site's weight with an export-mode forward; the port takes the same
-mapping ("<site>.w" -> stacked weight) from
-``models.transformer.site_weights``. Every site lands in the
-``ExportLedger``, exported or not, with the reason when it is not.
+Counterpart of ``repro/quant/export.py``. ``repro`` captures each site's
+weight with an export-mode forward; the port takes the same mapping
+("<site>.w" -> stacked weight) from ``models.transformer.site_weights``.
+Every site lands in the ``ExportLedger``, exported or not, with the reason
+when it is not; ``export_act_sites`` ledgers every matmul input the same
+way (DESIGN.md §16), so no site serves float GEMM inputs unseen.
 """
 
 from __future__ import annotations
@@ -32,6 +33,77 @@ class ExportLedger:
 
     entries: dict[str, dict] = dataclasses.field(default_factory=dict)
     sites: dict[str, Any] = dataclasses.field(default_factory=dict)
+    act_entries: dict[str, "ActExportEntry"] = dataclasses.field(
+        default_factory=dict)
+
+    def exported(self) -> dict[str, dict]:
+        return {k: e for k, e in self.entries.items() if e["served"] == "int"}
+
+    def fallbacks(self) -> dict[str, dict]:
+        return {k: e for k, e in self.entries.items()
+                if e["served"] == "fake_quant"}
+
+    # ---- activation (".in") sites (DESIGN.md §16) -------------------------
+    def act_exported(self) -> dict[str, "ActExportEntry"]:
+        return {k: e for k, e in self.act_entries.items()
+                if e.served == "int"}
+
+    def act_fallbacks(self) -> dict[str, "ActExportEntry"]:
+        return {k: e for k, e in self.act_entries.items()
+                if e.served != "int"}
+
+
+@dataclasses.dataclass
+class ActExportEntry:
+    """One activation (``.in``) site in the ledger.
+
+    ``served`` is "int" (the site's GEMM runs int8 x int8 against this
+    per-tensor grid), "fake_quant" (no calibrated spec: the GEMM input stays
+    float, visible as weight fallbacks are) or "excluded" (the site's
+    activation is unquantized by design). ``scale``/``zero_point`` carry a
+    leading stack axis for scan-stacked sites.
+    """
+
+    served: str
+    bits: int | None = None
+    scale: Any = None
+    zero_point: Any = None
+    reason: str | None = None
+
+
+def export_act_sites(act_specs: dict, sites: dict, *,
+                     warn: bool = True) -> dict[str, ActExportEntry]:
+    """Ledger every matmul site's input-activation quantization.
+
+    ``act_specs`` maps "<site>.in" -> ``ActQuantSpec``; ``sites`` is the
+    ``SiteInfo`` map. Every site gets an entry: served integer grids with
+    their scale and zero-point; sites without a spec as fallbacks (with a
+    ``UserWarning``), or as excluded when their activation is unquantized.
+    """
+    entries: dict[str, ActExportEntry] = {}
+    for name, site in sites.items():
+        key = name + ".in"
+        spec = act_specs.get(key)
+        if spec is not None:
+            scale, _ = spec.affine()
+            entries[key] = ActExportEntry(
+                served="int", bits=int(spec.bits), scale=scale,
+                zero_point=spec.zero_point())
+        elif getattr(site, "act_quantized", True):
+            entries[key] = ActExportEntry(served="fake_quant",
+                                          reason="no_act_spec")
+        else:
+            entries[key] = ActExportEntry(served="excluded",
+                                          reason="act_unquantized_site")
+    missing = sorted(k for k, e in entries.items()
+                     if e.served == "fake_quant")
+    if warn and act_specs and missing:
+        warnings.warn(
+            f"act export: {len(missing)} matmul site(s) have no calibrated "
+            f"activation spec and will serve float GEMM inputs: "
+            f"{missing[:4]}{'...' if len(missing) > 4 else ''}",
+            UserWarning, stacklevel=2)
+    return entries
 
 
 def _expand_group(a, w, stacked: bool):

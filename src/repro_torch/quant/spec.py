@@ -1,8 +1,9 @@
 """QuantSpec / QuantizedTensor: the quantization representation that goes
 from controller to kernel.
 
-Counterpart of ``repro/quant/spec.py`` for weight storage. ``QuantSpec``
-is one site's frozen bits/range/sign; ``QuantizedTensor`` is one frozen
+Counterpart of ``repro/quant/spec.py``. ``QuantSpec`` is one site's
+frozen bits/range/sign; ``ActQuantSpec`` the per-tensor grid of one matmul
+input (an ``.in`` site, DESIGN.md §16); ``QuantizedTensor`` is one frozen
 weight: int8 codes ``(..., K, N)`` (8-bit class) or 2/4-bit codes packed
 along K into uint8 ``(..., ceil(K/per), N)`` (``pack.py``), plus the affine
 terms, with ``codes * scale + bias`` on the exact ``core.quantizer.quantize``
@@ -17,7 +18,7 @@ import math
 import torch
 
 from repro_torch.core.gates import gate_to_bits
-from repro_torch.core.quantizer import quantize_to_int
+from repro_torch.core.quantizer import affine_grid, quantize_to_int
 
 from .pack import pack_codes, unpack_codes
 
@@ -65,6 +66,39 @@ class QuantSpec:
                          signed=self.signed)
 
 
+@dataclasses.dataclass
+class ActQuantSpec:
+    """Per-TENSOR affine activation spec of a matmul input (an ``.in``
+    site). ``bits`` and ``signed`` are host values, so the integer GEMM's
+    code width is known without a sync; ``beta`` is the calibrated range, a
+    tensor with a leading layer axis for scan-stacked sites."""
+
+    bits: int
+    beta: torch.Tensor
+    signed: bool = True
+
+    @classmethod
+    def from_gate(cls, gate, beta, signed: bool) -> "ActQuantSpec":
+        """Freeze a concrete activation gate (host sync; export time)."""
+        bits = int(gate_to_bits(torch.as_tensor(gate)).max().item())
+        return cls(bits=bits, beta=torch.as_tensor(beta, dtype=torch.float32),
+                   signed=bool(signed))
+
+    def affine(self):
+        """``(scale, bias)`` of the grid: dequant = codes * scale + bias."""
+        return affine_grid(self.bits, self.beta, self.signed)
+
+    def zero_point(self) -> torch.Tensor:
+        """Integer zero-point ``z`` with ``x ~ scale * (codes - z)``."""
+        scale, bias = self.affine()
+        return -bias / scale
+
+    def layer(self, r: int) -> "ActQuantSpec":
+        """Layer ``r`` of a scan-stacked spec."""
+        return ActQuantSpec(bits=self.bits, beta=self.beta[r],
+                            signed=self.signed)
+
+
 def specs_from_state(gates: dict, betas: dict, signed: dict) -> dict:
     """Controller state -> one ``QuantSpec`` per gated key."""
     return {k: QuantSpec.from_gate(g, betas[k], signed[k])
@@ -80,7 +114,7 @@ class QuantizedTensor:
     layout). ``scale``/``bias`` broadcast against the unpacked codes
     (``(..., 1, N)`` for per-channel sites); ``k`` is the logical fan-in;
     ``colsum`` is the int32 K-sum of the unpacked codes, frozen at export
-    for the integer GEMM of a later slice.
+    for the integer GEMM's zero-point correction.
     """
 
     codes: torch.Tensor

@@ -15,6 +15,13 @@ Counterpart of ``repro/serving/engine.py``, reduced to this slice:
     one ``decode_step`` for all slots and the greedy pick on the device, and
     fetches the tick's results in exactly ONE host transfer (``_sync``,
     counted in ``stats["tick_syncs"]``).
+  * ``act_bits`` (DESIGN.md §16) serves fully-integer GEMMs: a few seeded
+    batches calibrate a per-tensor ``ActQuantSpec`` for every matmul input
+    (``make_act_specs``), and each site with an int-code export then
+    quantizes its input and runs an int8 x int8 GEMM summed in int32 (K5
+    for 8-bit codes, K6 for packed 2/4-bit ones on the card);
+    ``quant_report`` certifies the BOPs at the served weight and
+    activation widths.
   * ``attention_window`` (an int or a ``window.WindowSpec``, DESIGN.md §17)
     serves long prompts under a sliding window with pinned sink blocks:
     prefill and decode mask to it (decode through K2c on the card), and
@@ -23,10 +30,9 @@ Counterpart of ``repro/serving/engine.py``, reduced to this slice:
     (``kv_pool.evict_out_of_window``), so a slot holds O(window) blocks.
 
 Not ported yet, each rejected with ``NotImplementedError`` naming its
-ROADMAP item: the ring layout, integer activation GEMMs, chunked prefill
-(so also between-chunk eviction), undersized pools, sampling with
-temperature. Prefix sharing, preemption, admission control and deadlines
-are absent.
+ROADMAP item: the ring layout, chunked prefill (so also between-chunk
+eviction), undersized pools, sampling with temperature. Prefix sharing,
+preemption, admission control and deadlines are absent.
 """
 
 from __future__ import annotations
@@ -41,12 +47,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.calibration import calibrate_activations
 from repro_torch.core.sites import (QuantConfig, QuantContext, init_gates,
                                     init_ranges_from_weights,
                                     split_learnable_ranges)
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.quant import export_sites, specs_from_state
+from repro_torch.quant import (ActQuantSpec, export_act_sites, export_sites,
+                               quant_report, specs_from_state)
 from repro_torch.quant.kv import KVQuantSpec, kv_cache_report
 from repro_torch.serving import kv_pool
 from repro_torch.serving.window import (WindowSpec, as_window_spec,
@@ -125,6 +133,39 @@ def make_mixed_quant_state(cfg: ModelConfig, params, *, device=None):
     return qs
 
 
+# bits -> the gate value whose T(g) is exactly that width; folds served
+# activation widths back into the BOP certificate (DESIGN.md §16).
+ACT_GATE_LEVELS = {2: 0.8, 4: 1.5, 8: 2.5}
+
+
+def make_act_specs(cfg: ModelConfig, params, act_bits: int, *,
+                   batches: int = 2, seq: int = 16, seed: int = 0) -> dict:
+    """Calibrate per-tensor ``.in`` activation specs for serving (§16).
+
+    Runs ``repro``'s seeded random batches (``default_rng(seed)``,
+    ``batches`` of (1, ``seq``) tokens) through a calibrate-mode
+    ``forward_train`` with ``QuantConfig(quantize_inputs=True)``, takes the
+    running ranges of ``core.calibration.calibrate_activations``, and
+    freezes every matmul input into an ``ActQuantSpec`` at ``act_bits``
+    (stacked sites with a leading layer axis on ``beta``). Runs where the
+    params live. Returns {"<site>.in": ActQuantSpec}.
+    """
+    qcfg = QuantConfig(quantize_inputs=True)
+    rng = np.random.default_rng(seed)
+    dev = params["embed"].device
+    data = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, seq)))
+            .to(dev) for _ in range(batches)]
+
+    def fwd(qc, batch):
+        tfm.forward_train(qc, params, batch, cfg)
+
+    act_ranges = calibrate_activations(fwd, data, qcfg)
+    return {key: ActQuantSpec(bits=int(act_bits),
+                              beta=v["beta"].to(torch.float32),
+                              signed=bool(v["signed"]))
+            for key, v in act_ranges.items() if key.endswith(".in")}
+
+
 # ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
@@ -186,7 +227,10 @@ class ServingEngine:
     every slot at ``max_seq``, so the in-tick allocator can never run dry.
     ``attention_window``: ``None``, an int (a sliding window, no sinks) or a
     ``WindowSpec`` (window plus pinned sink blocks), bound to
-    ``block_size``. ``device=None`` means the card.
+    ``block_size``. ``act_bits`` (2, 4 or 8; needs a quant_state)
+    calibrates a per-tensor spec for every matmul input and serves each
+    exported site through the integer GEMMs (int8 codes: K5, packed: K6).
+    ``device=None`` means the card.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
@@ -199,7 +243,6 @@ class ServingEngine:
                  device=None):
         unported = {
             "kv_layout='ring'": (kv_layout == "ring", 10, "the ring layout"),
-            "act_bits": (act_bits is not None, 9, "fully-integer GEMMs"),
             "prefill_chunk_tokens": (prefill_chunk_tokens is not None, 12,
                                      "continuous batching"),
         }
@@ -219,18 +262,33 @@ class ServingEngine:
         self.params = params
         self.slots = slots
         self.max_seq = max_seq
+        if act_bits is not None and quant_state is None:
+            raise ValueError("act_bits requires a quant_state")
+        if act_bits is not None and act_bits not in ACT_GATE_LEVELS:
+            raise ValueError(f"act_bits must be one of "
+                             f"{sorted(ACT_GATE_LEVELS)}, got {act_bits}")
+        self.quant_state = quant_state
         self.qweights: dict = {}
         self.export_ledger = None
+        self.act_bits = act_bits
+        self.act_specs: dict[str, ActQuantSpec] = {}
         if quant_state is None:
             self._qc = QuantContext(mode="off")
         else:
             self.qweights, self.export_ledger = export_int_model(
                 params, cfg, quant_state, device=self.device)
-            self._qc = QuantContext(
-                mode="serve", cfg=quant_state["qcfg"], qweights=self.qweights,
-                specs=specs_from_state(quant_state["gates"],
-                                       quant_state["betas"],
-                                       quant_state["signed"]))
+            specs = specs_from_state(quant_state["gates"],
+                                     quant_state["betas"],
+                                     quant_state["signed"])
+            if act_bits is not None:
+                # fully-integer GEMMs (DESIGN.md §16): every site with an
+                # export and an ``.in`` spec runs K5/K6
+                self.act_specs = make_act_specs(cfg, params, act_bits)
+                specs = {**specs, **self.act_specs}
+                self.export_ledger.act_entries = export_act_sites(
+                    self.act_specs, self.export_ledger.sites)
+            self._qc = QuantContext(mode="serve", cfg=quant_state["qcfg"],
+                                    qweights=self.qweights, specs=specs)
 
         self.block_size = block_size
         self.max_blocks = -(-max_seq // block_size)
@@ -313,6 +371,23 @@ class ServingEngine:
             report["window"] = window_report(self.window_spec,
                                              self.max_blocks, self.block_size)
         return report
+
+    def quant_report(self) -> dict:
+        """Bytes/BOPs ledger of the served artifact (``quant.quant_report``)
+        with the KV section; needs an int export. With ``act_bits`` the
+        served activation widths are folded into the gates (a per-tensor
+        ``.in`` gate at the level whose T(g) is exactly that width), so
+        ``bops.model`` certifies w_bits x a_bits x MACs (§16)."""
+        if self.export_ledger is None:
+            raise ValueError("no quantized export to report")
+        gates = self.quant_state["gates"]
+        if self.act_specs:
+            gates = dict(gates)
+            for key, spec in self.act_specs.items():
+                gates[key] = torch.tensor(ACT_GATE_LEVELS[int(spec.bits)],
+                                          dtype=torch.float32,
+                                          device=self.device)
+        return quant_report(self.export_ledger, gates, kv=self.kv_report())
 
     # ------------------------------------------------------------------
     def _prefill_shape(self, plen: int) -> int:

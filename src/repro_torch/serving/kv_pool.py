@@ -159,7 +159,9 @@ def evict_out_of_window(alloc, first_live, live, sink_blocks: int):
     ids = torch.where(ev, tbl, 0).long()
     dec = torch.zeros((nb,), dtype=torch.int32, device=tbl.device).index_add(
         0, ids.reshape(-1), _i32(ev.reshape(-1)))
-    dec[0] = 0      # junk lanes accumulate on the garbage block's id
+    # junk lanes accumulate on the garbage block's id; a fill kernel, where
+    # ``dec[0] = 0`` would copy the scalar from the host and synchronize
+    dec[:1].zero_()
     ref = alloc["ref"] - dec
     freed = (dec > 0) & (ref == 0)
     rank = torch.cumsum(_i32(freed), 0) - 1

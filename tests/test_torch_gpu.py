@@ -1,10 +1,11 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version at small and ragged shapes (K4 also bit for bit against K1 on the
-unpacked codes, K3 bit for bit against its plain version, K2c under a
-window that does not bind bit for bit against K2a/K2b), the serving engine
-on the card, uniform int8 and mixed 2/4/8-bit over an int4 KV pool and
-under a sliding window, and CGMQ train steps on the card against the same
-steps on the CPU.
+unpacked codes, K3, K5 and K6 bit for bit against their plain versions, K6
+also against K5 on the unpacked codes, K2c under a window that does not
+bind bit for bit against K2a/K2b), the serving engine on the card, uniform
+int8 and mixed 2/4/8-bit over an int4 KV pool, under a sliding window and
+with integer GEMMs (``act_bits=8``), and CGMQ train steps on the card
+against the same steps on the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it also runs where only PyTorch is installed (the
@@ -12,6 +13,8 @@ suite's conftest imports JAX, hence ``--noconftest``)::
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.controller import init_state
 from repro_torch.core.gates import gate_to_bits
+from repro_torch.core.quantizer import affine_grid
 from repro_torch.data.synthetic import lm_tokens
 from repro_torch.kernels.fake_quant.fake_quant import fake_quant
 from repro_torch.kernels.fake_quant.ref import fake_quant_ref
@@ -33,13 +37,17 @@ from repro_torch.kernels.paged_attention.paged_attention import (
 from repro_torch.kernels.paged_attention.ref import (
     bf16_rounding_tolerance, paged_attention_ref)
 from repro_torch.kernels.quant_matmul.quant_matmul import (
-    quant_matmul, quant_matmul_packed)
-from repro_torch.kernels.quant_matmul.ref import (quant_matmul_packed_ref,
-                                                  quant_matmul_ref)
+    int_matmul, int_matmul_packed, quant_matmul, quant_matmul_packed)
+from repro_torch.kernels.quant_matmul.ref import (int_matmul_packed_ref,
+                                                  int_matmul_ref,
+                                                  quant_matmul_packed_ref,
+                                                  quant_matmul_ref,
+                                                  quantize_act_ref)
 from repro_torch.models import transformer as tfm
 from repro_torch.quant.kv import KVQuantSpec, dequantize_kv, quantize_kv
 from repro_torch.quant.pack import pack_codes
-from repro_torch.serving.engine import (SamplingParams, ServingEngine,
+from repro_torch.serving.engine import (Request, SamplingParams,
+                                        ServingEngine,
                                         make_mixed_quant_state,
                                         make_uniform_quant_state)
 from repro_torch.serving.window import WindowSpec
@@ -137,6 +145,54 @@ def test_quant_matmul_packed_kernel_matches_plain_and_k1(cuda, mkn, bits):
     assert quant_matmul_packed.launches == before + 1
     assert bool(((got - want).abs() <= K1_RTOL * mag + 1e-6).all())
     assert torch.equal(got, k1)
+
+
+@pytest.mark.parametrize("act_bits", [8, 4])
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("mkn", [(3, 101, 37), (1, 64, 96), (8, 2048, 256),
+                                 (64, 640, 130), (130, 66, 65),
+                                 (512, 2048, 256)])
+def test_int_matmul_kernels_bit_equal_to_plain(cuda, mkn, bits, act_bits):
+    """K5 (8-bit codes) and K6 (2/4-bit codes packed along K) with both
+    loaders: int8 activation codes with their row sums, and fp32
+    activations quantized in the kernel on a signed and an unsigned grid.
+    Each bit for bit against its plain version (int32 sums are exact in any
+    order; the epilogue is rounded as the plain version rounds it), and K6
+    bit for bit against K5 on the unpacked codes."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(sum(mkn) + bits + act_bits)
+    x = torch.randn((m, k), generator=g, device=cuda) * 1.5
+    half = 1 << (bits - 1)
+    codes = torch.randint(-half, half, (k, n), generator=g, device=cuda,
+                          dtype=torch.int8)
+    es = torch.rand((n,), generator=g, device=cuda) * 1e-3 + 1e-5
+    eb = (torch.rand((n,), generator=g, device=cuda) - 0.5) * 2e-4
+    cst = torch.rand((n,), generator=g, device=cuda) - 0.5
+    before = (int_matmul.launches, int_matmul_packed.launches)
+    for signed in (True, False):
+        beta = torch.tensor(2.0, device=cuda)
+        alpha = -beta if signed else torch.zeros_like(beta)
+        s, _ = affine_grid(act_bits, beta, signed)
+        grid = torch.stack([alpha, beta, s])
+        qx, rowsum = quantize_act_ref(x, grid, act_bits)
+        want = int_matmul_ref(qx, codes, es, eb, rowsum, cst)
+        k5 = int_matmul(qx, codes, es, eb, rowsum, cst)
+        k5f = int_matmul(x, codes, es, eb, None, cst, act=(grid, act_bits))
+        torch.cuda.synchronize()
+        assert torch.equal(k5, want) and torch.equal(k5f, want)
+        if bits < 8:
+            packed = pack_codes(codes, bits)
+            wantp = int_matmul_packed_ref(qx, packed, es, eb, rowsum, cst,
+                                          bits=bits, k=k)
+            k6 = int_matmul_packed(qx, packed, es, eb, rowsum, cst,
+                                   bits=bits, k=k)
+            k6f = int_matmul_packed(x, packed, es, eb, None, cst, bits=bits,
+                                    k=k, act=(grid, act_bits))
+            torch.cuda.synchronize()
+            assert torch.equal(wantp, want)
+            assert torch.equal(k6, want) and torch.equal(k6f, want)
+    assert int_matmul.launches == before[0] + 4
+    assert int_matmul_packed.launches == before[1] + (4 if bits < 8 else 0)
 
 
 def _quant_pools(bits, hd, b=5, kvh=2, bs=8, mb=6, seed=0):
@@ -335,6 +391,75 @@ def test_mixed_engine_over_int4_kv_on_card(cuda):
     assert quant_matmul_packed.launches == (5 * cfg.n_layers + 1) * forwards
     assert paged_attention_quant.launches == cfg.n_layers * st["decode_ticks"]
     assert paged_attention.launches == 0
+
+
+@pytest.mark.parametrize("state, kv_dtype", [("uniform", "bf16"),
+                                             ("mixed", "int4")])
+def test_int_engine_on_card_runs_through_k5_k6(cuda, state, kv_dtype):
+    """ServingEngine(act_bits=8) on the card: every GEMM of the uniform
+    artifact is a K5 launch; the mixed artifact's 8-bit sites run K5 and
+    its packed 2/4-bit sites K6; K1 and K4 never launch; attention goes
+    through K2a (bf16 pool) or K2b (int4 pool); one sync per tick; every
+    GEMM input is served integer."""
+    cfg = get_smoke_config("tinyllama-1.1b")
+    params = _to(tfm.init_params(cfg, 0, device="cpu"), cuda)
+    make = make_uniform_quant_state if state == "uniform" \
+        else make_mixed_quant_state
+    eng = ServingEngine(cfg, params, slots=3, max_seq=64, kv_dtype=kv_dtype,
+                        act_bits=8, quant_state=make(cfg, params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (3, 9, 20, 7)]
+    kernels = (quant_matmul, quant_matmul_packed, int_matmul,
+               int_matmul_packed, paged_attention, paged_attention_quant)
+    for fn in kernels:
+        fn.launches = 0
+    res = eng.generate(prompts, SamplingParams(max_new=5))
+    st = eng.stats
+    assert all(r.finish_reason == "length" and len(r.tokens) == 5
+               and all(0 <= t < cfg.vocab_size for t in r.tokens)
+               for r in res)
+    assert st["tick_syncs"] == st["decode_ticks"]
+    forwards = st["prefill_forwards"] + st["decode_ticks"]
+    layers, ticks = cfg.n_layers, st["decode_ticks"]
+    if state == "uniform":
+        want = (0, 0, (7 * layers + 1) * forwards, 0, layers * ticks, 0)
+    else:
+        want = (0, 0, 2 * layers * forwards, (5 * layers + 1) * forwards, 0,
+                layers * ticks)
+    assert tuple(fn.launches for fn in kernels) == want
+    acts = eng.quant_report()["acts"]
+    assert acts["covered"] == acts["total"] == 8
+    assert acts["fallback_sites"] == []
+
+
+@pytest.mark.parametrize("cell", ["uniform", "window", "int"])
+def test_decode_tick_runs_one_synchronizing_operation(cuda, cell):
+    """A full-batch decode tick runs exactly one synchronizing CUDA
+    operation, its host transfer, as PyTorch's sync debug mode counts them:
+    over a bf16 pool, under a binding window (the in-tick eviction must
+    stay on the device) and through the integer GEMMs."""
+    cfg = get_smoke_config("tinyllama-1.1b")
+    params = _to(tfm.init_params(cfg, 0, device="cpu"), cuda)
+    extra = {"window": {"attention_window": WindowSpec(16, 1)},
+             "int": {"act_bits": 8}}.get(cell, {})
+    eng = ServingEngine(cfg, params, slots=2, max_seq=128,
+                        quant_state=make_uniform_quant_state(cfg, params),
+                        **extra)
+    for i in range(2):
+        eng.submit(Request(rid=i, prompt=np.arange(1, 40 + i), max_new=8))
+    eng.step()
+    eng.step()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 1
+    assert eng.stats["tick_syncs"] == eng.stats["decode_ticks"] == 3
 
 
 @pytest.mark.parametrize("mn", [(1, 1), (3, 101), (64, 257), (300, 2048)])

@@ -23,8 +23,10 @@ from repro.kernels.quant_matmul.ops import quant_matmul_op as j_qm_op
 from repro.kernels.quant_matmul.ops import \
     quant_matmul_packed_op as j_qm_packed_op
 from repro.kernels.quant_matmul.ops import quant_matmul_qt as j_qm_qt
+from repro.core.quantizer import fake_quant as j_fake_quant
 from repro.quant import kv as jkv
 from repro.quant.pack import pack_codes as j_pack_codes
+from repro.quant.spec import ActQuantSpec as JActQuantSpec
 from repro.quant.spec import QuantizedTensor as JQuantizedTensor
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ops import paged_attention_op
@@ -41,7 +43,7 @@ from repro_torch.kernels.quant_matmul.ref import (quant_matmul_packed_ref,
                                                   quant_matmul_ref)
 from repro_torch.quant import kv as tkv
 from repro_torch.quant.pack import pack_codes
-from repro_torch.quant.spec import QuantizedTensor
+from repro_torch.quant.spec import ActQuantSpec, QuantizedTensor
 
 PKG = Path(__file__).resolve().parent.parent / "src" / "repro_torch"
 
@@ -96,7 +98,13 @@ def test_quant_matmul_plain_matches_repro(mkn, use_pallas):
 
 
 def test_quant_matmul_qt_matches_repro():
-    """One layer of a stacked per-channel export, 3-D activations."""
+    """One layer of a stacked per-channel export, 3-D activations; with an
+    8-bit ``ActQuantSpec`` the integer GEMM (K5's plain version), bit-equal
+    to repro's ``quant_matmul_qt(act_spec=...)`` evaluated op by op
+    (jitted, XLA contracts a product and a sum of its epilogue into an FMA;
+    tests/test_torch_int.py bounds that) and within the fused dequant
+    GEMM's tolerance of the float-activation path on the fake-quantized
+    input."""
     rng = np.random.default_rng(7)
     w = rng.normal(size=(2, 48, 40)).astype(np.float32) * 0.2
     bits = np.full((2, 1, 40), 8.0, np.float32)
@@ -116,8 +124,23 @@ def test_quant_matmul_qt_matches_repro():
                   np.asarray(jqt.scale[1]).reshape(-1),
                   np.asarray(jqt.bias[1]).reshape(-1)).reshape(want.shape)
     assert (np.abs(got - want) <= tol).all()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        quant_matmul_qt(torch.from_numpy(x), tqt.layer(1), act_spec=object())
+    beta = np.float32(2.5)
+    with jax.disable_jit():
+        want_int = np.asarray(j_qm_qt(
+            jnp.asarray(x), jax.tree.map(lambda a: a[1], jqt),
+            act_spec=JActQuantSpec(8, jnp.asarray(beta)), use_pallas=False))
+    got_int = quant_matmul_qt(torch.from_numpy(x), tqt.layer(1),
+                              act_spec=ActQuantSpec(8, torch.tensor(beta)))
+    assert got_int.dtype == torch.float32
+    assert (got_int.numpy().view(np.int32) == want_int.view(np.int32)).all()
+    xq = np.array(j_fake_quant(jnp.asarray(x), jnp.float32(8.0),
+                               jnp.asarray(beta), True))
+    assert (np.abs(got_int.numpy() - quant_matmul_qt(
+        torch.from_numpy(xq), tqt.layer(1)).numpy())
+        <= _qm_tol(xq.reshape(-1, 48), np.asarray(jqt.codes[1]),
+                   np.asarray(jqt.scale[1]).reshape(-1),
+                   np.asarray(jqt.bias[1]).reshape(-1)).reshape(
+                       want.shape)).all()
 
 
 @pytest.mark.parametrize("use_pallas", [True, False])

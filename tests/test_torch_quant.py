@@ -220,8 +220,6 @@ def test_unported_quant_options_raise(smoke):
     # listing (transformer.collect_sites / site_weights)
     with pytest.raises(NotImplementedError, match="collect_sites"):
         QuantContext(mode="collect")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        QuantConfig(quantize_inputs=True)
     with pytest.raises(NotImplementedError, match="item 3"):
         tg.gated_fake_quant(torch.zeros((3, 4)), torch.ones((3, 4)),
                             torch.ones(()), True)
