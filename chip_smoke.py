@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero:
                  (40-token prompt, eviction before the decode) over bf16
                  and int8 pools; then [parity-int]: the uniform/bf16 and
                  mixed/int4 states with act_bits=8 (integer GEMMs; the same
-                 activation specs on both sides).
+                 activation specs on both sides); then [parity-gemma2]: a
+                 2-layer (one local, one global) full-width gemma2-2b with
+                 its window cut to 64, a 200-token prompt.
   5. serve    -- full tinyllama-1.1b (22 layers, random seeded weights, int8
                  per-channel export, paged bf16 KV) through ServingEngine:
                  12 greedy requests on 8 slots; launch counters must equal
@@ -52,6 +54,14 @@ Phases, in order; any failure exits non-zero:
                  then serve-int-mixed, the mixed/int4 cell the same way (K5
                  44 and K6 111 per forward, K2b n_layers per tick, BOPs
                  below uniform); each with its profile.
+ 7d. serve-gemma2 -- gemma2-2b at full width and depth (slice 6: 26
+                 layers alternating local and global, softcaps, GeGLU,
+                 sandwich norms), uniform int8 over a bf16 pool of
+                 16-token blocks, 4 slots of max_seq 4608, 8 greedy
+                 requests (2 of them 4200-4500 tokens, past the 4096
+                 window): K1 183 per forward, K7 26 per prefill and none
+                 in a tick, K2a 13 and K2c 13 a tick, one sync a tick;
+                 then its profile.
   8. train-parity -- one CGMQ step of a 2-layer full-width model on the CPU
                  (plain versions) and on the card (K3), same state: loss,
                  gradient norms per leaf and new gates, each against a
@@ -70,7 +80,12 @@ The kernels phase also holds K5 and K6 (int8 x int8 GEMMs summed in int32,
 slice 5) bit for bit against their plain versions at every GEMM shape of
 the int cells, with both activation loaders (int8 codes, and fp32
 activations quantized in the kernel), and K6 bit for bit against K5 on the
-unpacked codes. It holds K3 (fused gated fake-quant) bit for bit
+unpacked codes, and K7 (whole-prompt flash attention, slice 6) within its
+stated tolerance at tinyllama's and gemma2's prefill shapes, a ragged S
+and fp32 operands. Every prefill on the card runs K7, so the tinyllama
+serve cells count it too (22 a prefill, none in a tick); the training
+forwards do not (K7 has no backward), calibration does. It holds K3
+(fused gated fake-quant) bit for bit
 against its plain version at the training step's shapes, and K2c
 (windowed paged attention) against its plain version on bf16, fp32, int8
 and int4 pools under binding windows with and without sinks, sinks that
@@ -110,10 +125,39 @@ K2C_CASES = ((WIN_WINDOW, WIN_SINK_BLOCKS * BLOCK), (WIN_WINDOW, 0),
 # [parity-window]: a window that binds on a 40-token prompt, one sink block
 PARITY_WINDOW, PARITY_WINDOW_SINK_BLOCKS, PARITY_WINDOW_PLEN = 12, 1, 40
 
+# serve-gemma2 (slice 6): gemma2-2b at full width and depth, 4 slots of
+# max_seq 4608 over a bf16 pool of 16-token blocks; 6 prompts of 22-352
+# tokens and 2 of 4200-4500, so that the 4096 window binds in K7's
+# prefill and in K2c's decode
+G2_SLOTS, G2_MAX_SEQ, G2_BLOCK = 4, 4608, 16
+G2_SHORT, G2_LONG = (6, 22, 352), (2, 4200, 4500)
+# [parity-gemma2]: 2 layers (one local, one global), the window cut to 64
+# so that it binds on a 200-token prompt (a 4096-token full-width prefill
+# is beyond the CPU)
+G2_PARITY_WINDOW, G2_PARITY_PLEN = 64, 200
+# K7 kernel cases (name, B, Hq, Hkv, hd, S, dtype, window, sinks, softcap):
+# tinyllama's prefill at the serve cells' largest bucket and under the
+# serve-window spec (window 256, 2 sink blocks of 8); gemma2's local and
+# global layers at [serve-gemma2]'s longest bucket; a ragged S over two
+# batch rows; fp32 operands. The first is the kernels line's entry: SDPA
+# computes exactly its function (no softcap, which SDPA lacks).
+K7_CASES = (
+    ("tinyllama-prefill", 1, 32, 4, 64, 512, "bfloat16", None, 0, None),
+    ("tinyllama-window", 1, 32, 4, 64, 1024, "bfloat16", WIN_WINDOW,
+     WIN_SINK_BLOCKS * BLOCK, None),
+    ("gemma2-local", 1, 8, 4, 256, G2_MAX_SEQ, "bfloat16", 4096, 0, 50.0),
+    ("gemma2-global", 1, 8, 4, 256, G2_MAX_SEQ, "bfloat16", None, 0, 50.0),
+    ("ragged", 2, 8, 4, 256, 333, "bfloat16", 64, 5, 50.0),
+    ("fp32", 1, 8, 4, 256, 1024, "float32", 256, 0, 50.0),
+)
+
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 FLOP/s outside the
 # tensor cores. Both kernels compute in fp32 on the CUDA cores.
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+# bf16 tensor-core peak (dense): the bound of K7's operations over bf16
+# operands (fp32 operands: FP32_FLOP_S)
+BF16_FLOP_S = 989e12
 # int8 tensor-core peak (dense): the bound of the integer GEMMs' operations
 INT8_OPS_S = 1979e12
 # slice 5: the activation width of the integer cells
@@ -139,6 +183,14 @@ K4_RTOL = K1_RTOL
 # 2^-9 of itself, so the output moves by at most 2^-9 * max|v|; we allow
 # twice that, plus 1e-5 of fp32 noise.
 K2_TOL_FACTOR = 2.0 ** -8
+# K7 tolerances against its plain version, which computes the same fp32
+# function (scores, softmax statistics, probabilities and PV sums in fp32)
+# with its sums in another order: fp32 outputs within 1e-4 of max|v|, a
+# wide margin over fp32 reassociation across up to 4608 keys that a mask,
+# tile or head-indexing fault (an error of order max|v|) still breaks;
+# bf16 outputs, each side rounding its own fp32 result, within one bf16
+# ulp of the output plus 1e-5 of max|v|.
+K7_F32_RTOL, K7_BF16_RTOL = 1e-4, 1e-5
 # K2b tolerances. Against the plain version:
 # repro_torch.kernels.paged_attention.ref.bf16_rounding_tolerance, derived
 # there from the plain version's bf16 roundings of the dequantized K and V
@@ -973,6 +1025,72 @@ def k3_case(m: int, n: int, dtype: str, gen, card: str):
     return res
 
 
+def k7_case(case, gen, card: str):
+    """K7 against its plain version at one whole-prompt shape, inputs in
+    the model's (B, S, H, hd) layout read through (B, H, S, hd) strides as
+    attention_train hands them; kernel, plain and library (SDPA over the
+    same tensors and mask) times, and the bound: the inputs and output
+    moved once, the attended (q, k) pairs' 4 hd FLOPs at the tensor-core
+    peak of the operands' type. Returns a result dict."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         flash_attention_ref)
+
+    name, b, hq, hkv, hd, s, dtype, window, sinks, cap = case
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, s, h, hd), generator=gen, device="cuda")
+               .to(dt).transpose(1, 2) for h in (hq, hkv, hkv))
+    kw = {"causal": True, "window": window, "sinks": sinks, "softcap": cap}
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    vmax = float(v.float().abs().max())
+    err = (got.float() - want.float()).abs()
+    if dt == torch.bfloat16:
+        mag = want.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+        tol = K7_BF16_RTOL * vmax + torch.exp2(torch.floor(torch.log2(mag))
+                                               - 7)
+    else:
+        tol = torch.full_like(err, K7_F32_RTOL * vmax)
+    res = {"case": name, "max_abs_err": float(err.max()),
+           "ok": bool((err <= tol).all())}
+    mask = attention_mask(s, window=window, sinks=sinks, device="cuda")
+    lib_kw = {"is_causal": True} if window is None else {"attn_mask": mask}
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, scale=hd ** -0.5,
+                                              enable_gqa=True, **lib_kw)
+
+    res["ms"] = time_ms(lambda: flash_attention(q, k, v, **kw), iters=10,
+                        warmup=2)
+    res["plain_ms"] = time_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                              iters=5, warmup=1)
+    res["library_ms"] = time_ms(library, iters=10, warmup=2)
+    lib_err = ""
+    if cap is None:     # then SDPA computes the same function
+        diff = float((library().float() - want.float()).abs().max())
+        lib_err = f", |SDPA - plain| {diff:.3e}"
+    pairs = int(mask.sum()) * b * hq
+    res["bytes"] = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    res["flops"] = 4.0 * hd * pairs
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        res["bytes"], res["flops"],
+        BF16_FLOP_S if dt == torch.bfloat16 else FP32_FLOP_S)
+    print(f"[kernels] flash_attention {name}: B={b} Hq={hq} Hkv={hkv} "
+          f"hd={hd} S={s} {dtype} window={window} sinks={sinks} "
+          f"softcap={cap}: max_abs_err {res['max_abs_err']:.3e} (max|v| "
+          f"{vmax:.3f}) -> {'ok' if res['ok'] else 'FAIL'}; kernel "
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
+          f"(SDPA{', no softcap' if cap is not None else ''}) "
+          f"{res['library_ms']:.4f} ms{lib_err}; {pairs} attended pairs, "
+          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}) [{card}]")
+    return res
+
+
 def phase_kernels(cfg, m_prefill: int, card: str):
     import torch
 
@@ -1015,6 +1133,8 @@ def phase_kernels(cfg, m_prefill: int, card: str):
             k6[(m, k, n, bits)] = k6_case(m, k, n, bits, gen, card)
     for bits in (2, 4):
         k6[(3, 101, 37, bits)] = k6_case(3, 101, 37, bits, gen, card)
+    k7 = {case[0]: k7_case(case, gen, card) for case in K7_CASES}
+    torch.cuda.empty_cache()
     bad = [r["shape"] for r in k1.values() if not r["ok"]] \
         + [f"softcap={r['softcap']}" for r in k2 if not r["ok"]] \
         + [(r["shape"], r["bits"]) for r in k4.values() if not r["ok"]] \
@@ -1023,7 +1143,8 @@ def phase_kernels(cfg, m_prefill: int, card: str):
         + [key for key, r in k2c.items() if not r["ok"]] \
         + [("int_matmul",) + key for key, r in k5.items() if not r["ok"]] \
         + [("int_matmul_packed",) + key for key, r in k6.items()
-           if not r["ok"]]
+           if not r["ok"]] \
+        + [("flash_attention", key) for key, r in k7.items() if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
     n_eq = sum(r["k1_bit_equal"] for r in k4.values())
     print(f"[kernels] K4 bit-equal to K1 on the unpacked codes in {n_eq} of "
@@ -1032,8 +1153,9 @@ def phase_kernels(cfg, m_prefill: int, card: str):
           f"bit-equal to K2a/K2b in all "
           f"{sum('bit_equal' in r for r in k2c.values())} cases; K5 and K6 "
           f"bit-equal to their plain versions in all {len(k5) + len(k6)} "
-          f"cases, K6 to K5 on the unpacked codes in all {len(k6)} [{card}]")
-    return k1, k2, k4, k2b, k3, k2c, k5, k6
+          f"cases, K6 to K5 on the unpacked codes in all {len(k6)}; K7 "
+          f"within its tolerance in all {len(k7)} cases [{card}]")
+    return k1, k2, k4, k2b, k3, k2c, k5, k6, k7
 
 
 def _to(tree, dev):
@@ -1050,9 +1172,10 @@ def _cpu_rounding(*, gemm_fp64: bool = False, attention_fp32: bool = False):
     """Context that changes where the CPU's plain versions round, not what
     they compute: ``gemm_fp64`` accumulates the plain GEMMs in fp64 (then
     rounds to fp32); ``attention_fp32`` runs the plain paged attention with
-    q in fp32, so it rounds neither K/V nor the probabilities to bf16 --
-    the kernels' own numerics (K2a/K2b keep them fp32, as the TPU kernel
-    does)."""
+    q in fp32, so it rounds neither K/V nor the probabilities to bf16, and
+    the prefill's attention through K7's plain version, whose
+    probabilities stay fp32 -- the kernels' own numerics (K2a/K2b and K7
+    keep them fp32, as the TPU kernels do)."""
     import contextlib
     from unittest import mock
 
@@ -1061,6 +1184,7 @@ def _cpu_rounding(*, gemm_fp64: bool = False, attention_fp32: bool = False):
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.quant_matmul import quant_matmul as wrappers
     from repro_torch.kernels.quant_matmul import ref
+    from repro_torch.models import attention
 
     def fp64_sums(x, codes, scale, bias):
         w = codes.to(torch.float32) * scale[None, :] + bias[None, :]
@@ -1079,12 +1203,16 @@ def _cpu_rounding(*, gemm_fp64: bool = False, attention_fp32: bool = False):
     if attention_fp32:
         stack.enter_context(mock.patch.object(pa, "paged_attention_ref",
                                               fp32_attention))
+        stack.enter_context(mock.patch.object(
+            attention, "_flash_prefill", lambda q, k, v: not (
+                q.requires_grad or k.requires_grad or v.requires_grad)))
     return stack
 
 
 def phase_parity(cfg, card: str, state: str = "uniform",
                  kv_dtype: str = "bf16", windowed: bool = False,
-                 act_bits: int | None = None):
+                 act_bits: int | None = None, plen: int | None = None,
+                 tag: str | None = None):
     """One prefill_slot and one decode_step of a 2-layer full-width model on
     the CPU (plain versions) and on the card (kernels), same weights: the
     uniform int8 or the mixed 2/4/8-bit state, over a ``kv_dtype`` pool. A
@@ -1099,12 +1227,17 @@ def phase_parity(cfg, card: str, state: str = "uniform",
     card), on the activation specs ``make_act_specs`` calibrates once on
     the CPU and hands to every run, so both quantize on the same grids.
 
-    For the mixed state and the integer GEMMs the CPU runs attend in fp32
-    (``_cpu_rounding``): on the ill-conditioned mixed model the plain
-    attention's bf16 roundings of K, V and the probabilities alone move the
-    decode logits by up to ~40% of their max, while the kernels keep them
-    in fp32 by design; with integer GEMMs, which are exact on both sides,
-    the attention is the only place the two runs round apart."""
+    ``plen`` and ``tag`` ([parity-gemma2]): a longer prompt, and every
+    block it needs, under its own tag.
+
+    For the mixed state, the integer GEMMs and [parity-gemma2] the CPU runs
+    attend in fp32 (``_cpu_rounding``): on the ill-conditioned mixed model
+    the plain attention's bf16 roundings of K, V and the probabilities
+    alone move the decode logits by up to ~40% of their max, while the
+    kernels keep them in fp32 by design; with integer GEMMs, which are
+    exact on both sides, the attention is the only place the two runs
+    round apart; gemma2's sandwich norms rescale every sublayer's output,
+    so the phase holds it to the kernels' own numerics too."""
     import numpy as np
     import torch
 
@@ -1131,14 +1264,17 @@ def phase_parity(cfg, card: str, state: str = "uniform",
     kv_spec = None if kv_dtype == "bf16" else KVQuantSpec(
         bits=int(kv_dtype[-1]), group_size=math.gcd(cfg2.head_dim, 32),
         head_dim=cfg2.head_dim)
-    plen, slots, mb = (PARITY_WINDOW_PLEN if windowed else 20), 2, 8
+    plen = plen or (PARITY_WINDOW_PLEN if windowed else 20)
+    # the table row covers the padded prompt that prefill writes
+    slots, mb = 2, max(8, _bucket(plen) // BLOCK)
     rng = np.random.default_rng(SEED + 2)
     toks = np.zeros((1, _bucket(plen)), np.int64)
     toks[0, :plen] = rng.integers(0, cfg2.vocab_size, plen)
     act_cpu = {} if act_bits is None else make_act_specs(cfg2, params_cpu,
                                                         act_bits)
     out = {}
-    attention_fp32 = state == "mixed" or act_bits is not None
+    attention_fp32 = state == "mixed" or act_bits is not None \
+        or tag is not None
     runs = {"cpu": {"attention_fp32": attention_fp32},
             "cpu_fp64_sums": {"gemm_fp64": True,
                               "attention_fp32": attention_fp32},
@@ -1187,9 +1323,11 @@ def phase_parity(cfg, card: str, state: str = "uniform",
         if act_bits is not None else "") + (
         f", window {spec.mask} over a {plen}-token prompt, "
         f"{int((alloc['table'][0] >= 0).sum())} of {-(-(plen + 1) // BLOCK)}"
-        f" blocks left after eviction" if spec is not None else "")
-    tag = "[parity-window]" if windowed else "[parity-int]" \
-        if act_bits is not None else "[parity]"
+        f" blocks left after eviction" if spec is not None else "") + (
+        f", layers {cfg2.block_pattern}, local window {cfg2.window} over a "
+        f"{plen}-token prompt" if "local" in cfg2.block_pattern else "")
+    tag = tag or ("[parity-window]" if windowed else "[parity-int]"
+                  if act_bits is not None else "[parity]")
     for name, i in (("prefill", 0), ("decode", 1)):
         ref, got = out["cpu"][i], out["cuda"][i]
         check(bool(torch.isfinite(got).all()), f"{name} logits not finite")
@@ -1207,7 +1345,8 @@ def phase_parity(cfg, card: str, state: str = "uniform",
         rows = ref.reshape(-1, ref.shape[-1])
         agree = float((rows.argmax(-1) == got.reshape(
             -1, got.shape[-1]).argmax(-1)).float().mean())
-        print(f"{tag} 2-layer full-width, {label}, {name}: max |logit "
+        print(f"{tag} 2-layer full-width {cfg.name}, {label}, {name}: "
+              f"max |logit "
               f"diff| {diff:.4e}, max |logit| {float(ref.abs().max()):.4e}, "
               f"spread under fp64 GEMM sums {spread:.4e}; tol {tol:.4e} = "
               f"max({PARITY_RTOL:g} x max|logit|, {PARITY_SPREAD_FACTOR:g} x "
@@ -1226,6 +1365,8 @@ def phase_parity(cfg, card: str, state: str = "uniform",
 def _counters() -> dict:
     """Every kernel wrapper of the port, by name; each counts its launches."""
     from repro_torch.kernels.fake_quant.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
     from repro_torch.kernels.paged_attention.paged_attention import (
         paged_attention, paged_attention_quant, paged_attention_quant_window,
         paged_attention_window)
@@ -1240,6 +1381,7 @@ def _counters() -> dict:
             "paged_attention_quant": paged_attention_quant,
             "paged_attention_window": paged_attention_window,
             "paged_attention_quant_window": paged_attention_quant_window,
+            "flash_attention": flash_attention,
             "fake_quant": fake_quant}
 
 
@@ -1316,6 +1458,7 @@ def phase_serve(cfg, prompts, card: str, *, mixed: bool = False,
     layers = cfg.n_layers
     forwards = st["prefill_forwards"] + st["decode_ticks"]
     want = dict.fromkeys(counters, 0)
+    want["flash_attention"] = layers * st["prefill_forwards"]
     # integer GEMMs: K5 takes K1's sites, K6 K4's
     k8, kp = ("int_matmul", "int_matmul_packed") if act_bits is not None \
         else ("quant_matmul", "quant_matmul_packed")
@@ -1413,6 +1556,7 @@ def phase_serve_window(cfg, card: str, params):
     forwards = st["prefill_forwards"] + st["decode_ticks"]
     want = dict.fromkeys(counters, 0)
     want.update({"quant_matmul": (7 * layers + 1) * forwards,
+                 "flash_attention": layers * st["prefill_forwards"],
                  "paged_attention_window": layers * st["decode_ticks"]})
     for r in reqs:
         check(r.finish_reason == "length" and len(r.output) == MAX_NEW,
@@ -1454,6 +1598,114 @@ def phase_serve_window(cfg, card: str, params):
     return eng, prompts, launches
 
 
+def _gemma2_prompts(vocab: int):
+    """[serve-gemma2]'s prompts from default_rng(SEED): G2_SHORT then
+    G2_LONG, so the second wave holds both long ones."""
+    rng = __import__("numpy").random.default_rng(SEED)
+    lens = [int(n) for count, lo, hi in (G2_SHORT, G2_LONG)
+            for n in rng.integers(lo, hi + 1, count)]
+    return [rng.integers(0, vocab, (n,)) for n in lens]
+
+
+def phase_serve_gemma2(card: str):
+    """[serve-gemma2] (slice 6): gemma2-2b at full width and depth (26
+    layers alternating local and global, d 2304, 8 heads, KV 4, head_dim
+    256, ff 9216, vocab 256000, tied embeddings; random weights from seed
+    0), the uniform int8 state over a bf16 pool of 16-token blocks, 4 slots
+    of max_seq 4608, 8 greedy requests (6 of 22-352 tokens, 2 of
+    4200-4500), MAX_NEW new tokens each, wave admission, driven tick by
+    tick through ``step`` (what ``generate`` does). Every launch counter is
+    set to 0 just before the requests and read just after: K1 7 x 26 + 1 =
+    183 per forward, K7 26 per prefill and none in a decode tick, K2a 13
+    (global layers) and K2c 13 (local layers, window 4096) a tick, nothing
+    else. Returns (engine, prompts, launches)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import (Request, ServingEngine,
+                                            make_uniform_quant_state)
+
+    cfg = get_config("gemma2-2b")
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, SEED)
+    eng = ServingEngine(cfg, params, slots=G2_SLOTS, max_seq=G2_MAX_SEQ,
+                        quant_state=make_uniform_quant_state(cfg, params),
+                        block_size=G2_BLOCK, kv_dtype="bf16")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompts = _gemma2_prompts(cfg.vocab_size)
+    check(max(map(len, prompts)) > cfg.window, "no prompt passes the window")
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for entry in eng.cache["layers"] for t in entry.values())
+    kv_per_token = pool_bytes / (eng.num_blocks * G2_BLOCK)
+    export = sum(q.codes_bytes() + q.aux_bytes()
+                 for q in eng.qweights.values())
+    layers, half = cfg.n_layers, cfg.n_layers // 2
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    k7 = counters["flash_attention"]
+    reqs = [eng.submit(Request(rid=i, prompt=p, max_new=MAX_NEW))
+            for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bad_steps = []
+    while not all(r.done for r in reqs):
+        before = (k7.launches, eng.stats["prefill_forwards"])
+        eng.step()
+        prefills = eng.stats["prefill_forwards"] - before[1]
+        if k7.launches - before[0] != layers * prefills:
+            bad_steps.append((eng.stats["decode_ticks"], prefills,
+                              k7.launches - before[0]))
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    st = eng.stats
+    forwards = st["prefill_forwards"] + st["decode_ticks"]
+    want = dict.fromkeys(counters, 0)
+    want.update({"quant_matmul": (7 * layers + 1) * forwards,
+                 "flash_attention": layers * st["prefill_forwards"],
+                 "paged_attention": half * st["decode_ticks"],
+                 "paged_attention_window": half * st["decode_ticks"]})
+    for r in reqs:
+        check(r.finish_reason == "length" and len(r.output) == MAX_NEW,
+              f"request {r.rid}: {r.finish_reason}, {len(r.output)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.output),
+              f"request {r.rid}: token outside the vocabulary")
+    check(st["tick_syncs"] == st["decode_ticks"],
+          f"{st['tick_syncs']} tick syncs for {st['decode_ticks']} ticks")
+    check(launches == want, f"launch counters {launches}, the path implies "
+          f"{want}")
+    check(not bad_steps, f"steps whose K7 launches are not {layers} per "
+          f"prefill (tick, prefills, launches): {bad_steps[:5]}")
+    check(kv_per_token == 2 * layers * cfg.n_kv_heads * cfg.head_dim * 2,
+          f"{kv_per_token} B per cached token")
+    ttft = [r.first_token_s - r.submit_s for r in reqs]
+    decode_tokens = st["generated_tokens"] - len(reqs)
+    print(f"[serve-gemma2] uniform int8, bf16 KV: gemma2-2b {layers} layers "
+          f"({cfg.param_count() / 1e9:.3f} B params), {G2_SLOTS} slots, "
+          f"max_seq {G2_MAX_SEQ}, {len(prompts)} requests, prompts "
+          f"{sorted(map(len, prompts))} tokens, max_new {MAX_NEW}: setup "
+          f"{setup_s:.2f} s; export {export / 1e9:.4f} GB; KV pool "
+          f"{eng.num_blocks} blocks of {G2_BLOCK}, {pool_bytes / 1e9:.4f} GB,"
+          f" {kv_per_token:.0f} B per cached token; peak device memory "
+          f"{peak / 2**30:.2f} GiB [{card}]")
+    print(f"[serve-gemma2] stats {json.dumps(st)}")
+    print(f"[serve-gemma2] launches {launches} == expected {want}; K7 "
+          f"{layers} per prefill and none in a decode tick; tick_syncs == "
+          f"decode_ticks == {st['decode_ticks']}")
+    print(f"[serve-gemma2] TTFT mean {sum(ttft) / len(ttft):.4f} s max "
+          f"{max(ttft):.4f} s; decode "
+          f"{decode_tokens / st['decode_time_s']:.1f} tok/s "
+          f"({st['decode_time_s'] / st['decode_ticks'] * 1e3:.3f} ms per "
+          f"tick); prefill {st['prefill_time_s']:.3f} s for "
+          f"{st['prefill_forwards']} prompts; wall {wall:.3f} s [{card}]")
+    return eng, prompts, launches
+
+
 def _synchronizing_ops(fn) -> int:
     """Synchronizing CUDA operations that ``fn()`` runs, as PyTorch's sync
     debug mode reports them (one warning each)."""
@@ -1474,7 +1726,8 @@ def _one_sync(syncs: int, cell: str):
           f"CUDA operations, not the one host transfer")
 
 
-def phase_profile(eng, prompts, card: str, ticks: int = 5):
+def phase_profile(eng, prompts, card: str, ticks: int = 5,
+                  slots: int = SLOTS):
     """Where a decode tick's time goes: ``ticks`` full-batch ticks timed on
     the host without the profiler, one tick under the sync debug mode
     (which counts its synchronizing operations), then ``ticks`` more under
@@ -1487,7 +1740,7 @@ def phase_profile(eng, prompts, card: str, ticks: int = 5):
 
     from repro_torch.serving.engine import Request
 
-    for i, p in enumerate(prompts[:SLOTS]):
+    for i, p in enumerate(prompts[:slots]):
         eng.submit(Request(rid=1_000_000 + i, prompt=p,
                            max_new=2 * ticks + 3))
     eng.step()                       # the admission wave and a first tick
@@ -1527,8 +1780,9 @@ def phase_profile(eng, prompts, card: str, ticks: int = 5):
         q.packed for q in eng.qweights.values()) else "uniform int8") + (
         f", window {eng.window_spec.mask}" if eng.window_spec else "") + (
         f", act_bits {eng.act_bits}" if eng.act_bits else "")
+    tag = f"{eng.cfg.name}, " + tag
     print(f"[profile] {tag}: {aten_calls / ticks:.0f} ATen calls per decode "
-          f"tick (nested included) for {SLOTS} slots; {syncs} synchronizing "
+          f"tick (nested included) for {slots} slots; {syncs} synchronizing "
           f"CUDA operation(s) in one decode tick (sync debug mode)")
     if busy == 0:
         print(f"[profile] {tag}: decode tick {wall_ms:.3f} ms on the host "
@@ -1536,7 +1790,7 @@ def phase_profile(eng, prompts, card: str, ticks: int = 5):
               f"kernels) [{card}]")
         return syncs
     top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
-    print(f"[profile] {tag}: decode tick ({SLOTS} slots): host wall "
+    print(f"[profile] {tag}: decode tick ({slots} slots): host wall "
           f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
           f"{1 - busy / wall_ms:.3f}; per tick " + ", ".join(
               f"{k} {v:.3f} ms" for k, v in by_kind.items()) + f" [{card}]")
@@ -1765,7 +2019,7 @@ def phase_train(cfg, card: str):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-    k3 = counters["fake_quant"]
+    k3, k7 = counters["fake_quant"], counters["flash_attention"]
     fp_step = steps_lib.make_train_step(
         dataclasses.replace(recipe, quant_enabled=False))
     warm = []
@@ -1773,6 +2027,7 @@ def phase_train(cfg, card: str):
         state, m = fp_step(state, batch(i))
         warm.append(float(m["loss"]))
     warm_launches = k3.launches
+    warm_k7 = k7.launches
     t0 = time.perf_counter()
     calib = calibrate_activations(
         lambda qc, b: tfm.forward_train(qc, state.params, b["tokens"], cfg),
@@ -1780,6 +2035,7 @@ def phase_train(cfg, card: str):
         recipe.qcfg)
     calib_s = time.perf_counter() - t0
     calib_launches = k3.launches - warm_launches
+    calib_k7 = k7.launches - warm_k7
     state.betas, _ = split_learnable_ranges(apply_act_calibration(
         init_ranges_from_weights(recipe.sites, recipe.qcfg, lambda n: None,
                                  dev), calib))
@@ -1793,7 +2049,7 @@ def phase_train(cfg, card: str):
     prof = None
     for i in range(CGMQ_STEPS):
         b = batch(WARMUP_STEPS + CALIB_BATCHES + i)
-        before = k3.launches
+        before, before_k7 = k3.launches, k7.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if i == CGMQ_STEPS - 1:
@@ -1804,7 +2060,8 @@ def phase_train(cfg, card: str):
         ms = (time.perf_counter() - t0) * 1e3
         rows.append({"loss": loss, "rbop": float(m["rbop"]),
                      "sat": bool(m["sat"]), "ms": ms,
-                     "launches": k3.launches - before})
+                     "launches": k3.launches - before,
+                     "k7": k7.launches - before_k7})
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     sat_at = next((i + 1 for i, r in enumerate(rows) if r["sat"]), None)
@@ -1831,8 +2088,13 @@ def phase_train(cfg, card: str):
             f"{c} x {v}-bit" for v, c in zip(vals, counts)))
     want = {name: 0 for name in counters}
     want["fake_quant"] = per_forward * CGMQ_STEPS
-    print(f"[train] launches {launches} == expected {want}; warmup "
-          f"{warm_launches}, calibration {calib_launches}")
+    # calibration runs under no_grad, so its attention is K7's; the
+    # training forwards keep the einsums (K7 has no backward)
+    want["flash_attention"] = cfg.n_layers * CALIB_BATCHES
+    print(f"[train] launches {launches} == expected {want}; K3 warmup "
+          f"{warm_launches}, calibration {calib_launches}; K7 warmup "
+          f"{warm_k7}, calibration {calib_k7}, CGMQ steps "
+          f"{sum(r['k7'] for r in rows)}")
     check(all(math.isfinite(v) for v in warm)
           and all(math.isfinite(r["loss"]) for r in rows), "a loss is "
           "not finite")
@@ -1841,6 +2103,8 @@ def phase_train(cfg, card: str):
     check(all(r["launches"] == per_forward for r in rows),
           f"K3 launches per CGMQ step {[r['launches'] for r in rows]}, "
           f"expected {per_forward}")
+    check(warm_k7 == 0 and all(r["k7"] == 0 for r in rows),
+          "K7 launched in a training forward")
     check(launches == want, f"launch counters {launches}, expected {want}")
     check(bool(state.cgmq.best_valid) and sat_at is not None,
           "the controller never certified the budget")
@@ -1948,6 +2212,7 @@ def phase_train_serve(cfg, state, recipe, card: str):
     want = dict.fromkeys(counters, 0)
     want.update({"quant_matmul": per_layer[8] * forwards,
                  "quant_matmul_packed": per_layer["packed"] * forwards,
+                 "flash_attention": cfg.n_layers * st["prefill_forwards"],
                  "paged_attention": cfg.n_layers * st["decode_ticks"]})
     print(f"[train->serve] export of the certified state: sites by storage "
           f"{classes}; 2 greedy requests x 16 tokens: "
@@ -1962,7 +2227,7 @@ def phase_train_serve(cfg, state, recipe, card: str):
           f"serve launches {launches}, expected {want}")
 
 
-def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, launches,
+def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, launches,
                  mixed_launches, train_launches, window_launches,
                  int_launches, int_mixed_launches):
     """One entry per kernel. quant_matmul: one decode step's K1 work on the
@@ -1976,7 +2241,10 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, launches,
     step's K5 work (the 155 GEMMs at M = slots, fp32 activations quantized
     in the kernel; library: ``torch._int_mm`` at M = 32, which needs
     M > 16); int_matmul_packed: one mixed decode step's K6 work (its 111
-    packed GEMMs; library: ``torch._int_mm`` on the unpacked codes).
+    packed GEMMs; library: ``torch._int_mm`` on the unpacked codes);
+    flash_attention: one K7 launch at tinyllama's prefill shape (S 512,
+    32 heads over 4 KV heads, hd 64, bf16; library SDPA, the same
+    function), its launches those of the uniform serve cell (22 a prefill).
     ``launches`` from each kernel's own path: serve, mixed serve, train,
     serve-window, serve-int, serve-int-mixed."""
     per_step = {(cfg.d_model, cfg.n_heads * cfg.head_dim): 2 * cfg.n_layers,
@@ -1994,6 +2262,7 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, launches,
                                sum(r["flops"] * c for r, c in rows4))
     k2a, k2b4 = k2[0], k2b[MIXED_KV]
     k2c_bf16 = k2c[("bf16",) + K2C_CASES[0]]
+    k7p = k7[K7_CASES[0][0]]
     rows3 = [(k3[key], c) for key, c in k3_shapes(cfg).items()]
     k3_bound, k3_by = bound_ms(sum(r["bytes"] * c for r, c in rows3),
                                sum(r["flops"] * c for r, c in rows3))
@@ -2079,6 +2348,15 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, launches,
          "plain_ms": sum(r["plain_ms"] * c for r, c in rows6),
          "bound_ms": k6_bound, "bound_by": k6_by,
          "library_ms": sum(r["library_ms"] * c for r, c in rows6)},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces":
+             "src/repro/kernels/flash_attention/flash_attention.py:103",
+         "launches": launches["flash_attention"],
+         "max_abs_err": max(r["max_abs_err"] for r in k7.values()),
+         "ms": k7p["ms"], "plain_ms": k7p["plain_ms"],
+         "bound_ms": k7p["bound_ms"], "bound_by": k7p["bound_by"],
+         "library_ms": k7p["library_ms"]},
     ]}
 
 
@@ -2100,7 +2378,8 @@ def main() -> int:
     cfg = get_config("tinyllama-1.1b")
     prompts = _prompts(cfg.vocab_size)
     m_prefill = max(_bucket(len(p)) for p in prompts)
-    k1, k2, k4, k2b, k3, k2c, k5, k6 = phase_kernels(cfg, m_prefill, card)
+    k1, k2, k4, k2b, k3, k2c, k5, k6, k7 = phase_kernels(cfg, m_prefill,
+                                                         card)
     phase_parity(cfg, card)
     for kv_dtype in ("int8", "int4"):
         phase_parity(cfg, card, state="mixed", kv_dtype=kv_dtype)
@@ -2109,6 +2388,9 @@ def main() -> int:
     phase_parity(cfg, card, act_bits=INT_ACT_BITS)
     phase_parity(cfg, card, state="mixed", kv_dtype=MIXED_KV,
                  act_bits=INT_ACT_BITS)
+    phase_parity(dataclasses.replace(get_config("gemma2-2b"),
+                                     window=G2_PARITY_WINDOW),
+                 card, plen=G2_PARITY_PLEN, tag="[parity-gemma2]")
     torch.cuda.empty_cache()
     eng, launches, export = phase_serve(cfg, prompts, card)
     _one_sync(phase_profile(eng, prompts, card), "uniform/bf16")
@@ -2140,12 +2422,17 @@ def main() -> int:
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
+    eng, g2_prompts, _ = phase_serve_gemma2(card)
+    _one_sync(phase_profile(eng, g2_prompts[G2_SLOTS:], card,
+                            slots=G2_SLOTS), "serve-gemma2")
+    del eng
+    torch.cuda.empty_cache()
     phase_train_parity(cfg, card)
     state, recipe, train_launches = phase_train(cfg, card)
     phase_train_serve(cfg, state, recipe, card)
     del state
     print(f"[done] {time.perf_counter() - t_start:.1f} s [{card}]")
-    print(json.dumps(kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6,
+    print(json.dumps(kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7,
                                   launches, mixed_launches, train_launches,
                                   window_launches, int_launches[False],
                                   int_launches[True])))

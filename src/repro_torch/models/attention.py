@@ -1,22 +1,25 @@
-"""Attention: GQA with global causal masks, dense prefill and paged decode,
-optionally under a sliding window with sink tokens (DESIGN.md §17).
+"""Attention: GQA over global (causal) and local (sliding-window) layers,
+dense prefill and paged decode, optionally under the engine's window with
+sink tokens (DESIGN.md §17).
 
-Counterpart of ``repro/models/attention.py`` for global layers:
+Counterpart of ``repro/models/attention.py``:
 
-  * ``attention_train`` -- dense causal attention over a whole (padded)
-    prompt. ``repro`` runs it as two bf16 einsums with fp32 accumulation
-    outside any Pallas kernel, so it stays plain PyTorch here, with the same
-    cast points (no fused library attention).
+  * ``attention_train`` -- causal attention over a whole (padded) prompt.
+    On the card, where no gradient flows (prefill, calibration,
+    ``make_act_specs``), its core from the scores to the PV product is K7
+    (``flash_attention_op``); elsewhere -- every CPU run, and the training
+    forward, whose backward K7 does not have -- it is ``repro``'s two bf16
+    einsums with fp32 accumulation, with the same cast points.
   * ``attention_decode_paged`` -- one-token decode through a paged KV pool:
     the new K/V is written into the pool (quantized at the write site for
     an int8/int4 pool), then ``paged_attention_op`` (the K2a or K2b CUDA
     kernel on the card, K2c under a window) attends through the block
     table.
 
-Both take the engine's ``(window, sink_tokens)`` tuple (``window=None``:
-causal only), resolved per layer by ``_resolve_window``. Sliding-window
-(local) layers come with ROADMAP queue 1 item 14; ``_resolve_window`` is
-ported whole for them.
+Both resolve each layer's ``(window, sink_tokens)`` from its kind and the
+engine's tuple (``window=None``: the architectural mask only) by
+``_resolve_window``: a local layer attends ``cfg.window`` positions (and no
+more than the engine's window), a global one the whole causal history.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sites import QuantContext
+from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.paged_attention.ops import paged_attention_op
 from repro_torch.quant import kv as kv_codec
 
@@ -82,44 +86,68 @@ def _resolve_window(window, kind: str, cfg: ModelConfig):
     return (w, sinks)
 
 
-def attention_train(qc: QuantContext, p, x, cfg: ModelConfig, *,
-                    positions=None, window=None):
-    """Causal attention over a whole sequence; with the engine's
-    ``(window, sink_tokens)`` tuple, a key is also masked unless it lies
-    within ``window`` of the query or among the sinks. Returns
-    (y, (k, v))."""
+def _flash_prefill(q, k, v) -> bool:
+    """Whether K7 takes the attention core: on the card, where no gradient
+    flows through q/k/v. ``repro``'s K7 has no backward (no
+    ``custom_vjp``), so the port gives it none and the training forward
+    keeps the einsums."""
+    return q.is_cuda and not (q.requires_grad or k.requires_grad
+                              or v.requires_grad)
+
+
+def attention_train(qc: QuantContext, p, x, cfg: ModelConfig,
+                    kind: str = "global", *, positions=None, window=None):
+    """Causal attention over a whole sequence; a local layer also masks a
+    key unless it lies within ``cfg.window`` of the query, and with the
+    engine's ``(window, sink_tokens)`` tuple a key is masked unless it lies
+    within that window of the query or among the sinks (``_resolve_window``
+    per ``kind``). Returns (y, (k, v)).
+
+    Through K7 (on the card, no gradient) the softmax probabilities stay
+    fp32 into the PV product, as in the TPU kernel; ``repro``'s einsums,
+    which every other run keeps, round them to bf16 first. K2a set the same
+    precedent for decode."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(qc, p, x, cfg, positions)
-    groups = cfg.n_heads // cfg.n_kv_heads
-    k_r, v_r = _repeat_kv(k, groups), _repeat_kv(v, groups)
-    # bf16 operands, fp32 products and sums (the einsums' preferred type)
-    logits = torch.einsum(
-        "bqhd,bkhd->bhqk", q.to(COMPUTE_DTYPE).to(torch.float32),
-        k_r.to(COMPUTE_DTYPE).to(torch.float32)) * cfg.head_dim ** -0.5
-    logits = softcap(logits, cfg.attn_softcap)
-    qi = torch.arange(s, device=x.device)[:, None]
-    ki = torch.arange(s, device=x.device)[None, :]
-    mask = qi >= ki
-    eff, sinks = _resolve_window(window, "global", cfg)
-    if eff is not None:
-        in_win = (qi - ki) < eff
-        if sinks:
-            in_win |= ki < sinks
-        mask &= in_win
-    logits = torch.where(mask[None, None], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(COMPUTE_DTYPE)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(torch.float32),
-                       v_r.to(torch.float32)).to(COMPUTE_DTYPE)
+    eff, sinks = _resolve_window(window, kind, cfg)
+    if _flash_prefill(q, k, v):
+        # (B, S, H, hd) read through (B, H, S, hd) strides, KV heads shared
+        out = flash_attention_op(
+            q.to(COMPUTE_DTYPE).transpose(1, 2),
+            k.to(COMPUTE_DTYPE).transpose(1, 2),
+            v.to(COMPUTE_DTYPE).transpose(1, 2), causal=True, window=eff,
+            softcap=cfg.attn_softcap, sinks=sinks).transpose(1, 2)
+    else:
+        groups = cfg.n_heads // cfg.n_kv_heads
+        k_r, v_r = _repeat_kv(k, groups), _repeat_kv(v, groups)
+        # bf16 operands, fp32 products and sums (the einsums' preferred
+        # type)
+        logits = torch.einsum(
+            "bqhd,bkhd->bhqk", q.to(COMPUTE_DTYPE).to(torch.float32),
+            k_r.to(COMPUTE_DTYPE).to(torch.float32)) * cfg.head_dim ** -0.5
+        logits = softcap(logits, cfg.attn_softcap)
+        qi = torch.arange(s, device=x.device)[:, None]
+        ki = torch.arange(s, device=x.device)[None, :]
+        mask = qi >= ki
+        if eff is not None:
+            in_win = (qi - ki) < eff
+            if sinks:
+                in_win |= ki < sinks
+            mask &= in_win
+        logits = torch.where(mask[None, None], logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(COMPUTE_DTYPE)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(torch.float32),
+                           v_r.to(torch.float32)).to(COMPUTE_DTYPE)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
     y = qmatmul(qc, "attn_o", out, p["wo"])
     return qc.act("attn_o", y), (k, v)
 
 
 def attention_decode_paged(qc: QuantContext, p, x, pool: dict, block_table,
-                           pos, cfg: ModelConfig, *, write_mask=None,
-                           window=None):
+                           pos, cfg: ModelConfig, kind: str = "global", *,
+                           write_mask=None, window=None):
     """One-token decode through a paged KV pool.
 
     ``pool``: {"k", "v"} of (num_blocks, bs, KV, hd), one layer's physical
@@ -162,7 +190,7 @@ def attention_decode_paged(qc: QuantContext, p, x, pool: dict, block_table,
 
     groups = cfg.n_heads // cfg.n_kv_heads
     qg = q[:, 0].reshape(b, cfg.n_kv_heads, groups, cfg.head_dim)
-    eff, sinks = _resolve_window(window, "global", cfg)
+    eff, sinks = _resolve_window(window, kind, cfg)
     out = paged_attention_op(qg.to(COMPUTE_DTYPE), pool["k"], pool["v"],
                              block_table, pos, window=eff, sinks=sinks,
                              softcap=cfg.attn_softcap, **scales)

@@ -1,4 +1,4 @@
-"""Shared model layers: norms, rotary embeddings, the GLU MLP.
+"""Shared model layers: norms, rotary embeddings, the GLU MLPs.
 
 Counterpart of ``repro/models/layers.py``. Plain functions over explicit
 params; quantization flows through the ``QuantContext`` (``qc``). Compute is
@@ -70,21 +70,27 @@ def apply_rope(x, positions, theta: float):
 
 
 def glu_mlp(qc: QuantContext, p, x, kind: str):
-    """SwiGLU MLP with quantization sites."""
-    if kind != "swiglu":
+    """SwiGLU / GeGLU MLP with quantization sites: the gate's activation
+    (SiLU, or GELU with the tanh approximation, ``repro``'s
+    ``jax.nn.gelu(approximate=True)``) in fp32, cast to bf16, times the up
+    projection."""
+    if kind not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"mlp={kind!r} is ported with ROADMAP queue 1 item 14 (other "
             f"block kinds and archs)")
     g = qmatmul(qc, "mlp_gate", x, p["w_gate"])
     u = qmatmul(qc, "mlp_up", x, p["w_up"])
-    h = F.silu(g.to(torch.float32)).to(COMPUTE_DTYPE) * u
+    g32 = g.to(torch.float32)
+    act = F.silu(g32) if kind == "swiglu" else F.gelu(g32, approximate="tanh")
+    h = act.to(COMPUTE_DTYPE) * u
     h = qc.act("mlp_up", h)
     y = qmatmul(qc, "mlp_down", h, p["w_down"])
     return qc.act("mlp_down", y)
 
 
 def init_glu_mlp(d_model: int, d_ff: int, *, reps: int, generator, device):
-    """Scan-stacked (reps, ...) SwiGLU weights, ``randn / sqrt(fan_in)``."""
+    """Scan-stacked (reps, ...) SwiGLU/GeGLU weights, ``randn /
+    sqrt(fan_in)``."""
     def w(shape, fan_in):
         return torch.randn((reps,) + shape, generator=generator,
                            device=device) / fan_in ** 0.5

@@ -1,12 +1,16 @@
-"""Config-driven decoder: dense global-attention + SwiGLU blocks.
+"""Config-driven decoder: dense attention blocks (global, or local sliding
+window) with SwiGLU or GeGLU MLPs.
 
-Counterpart of ``repro/models/transformer.py`` for the dense decoder that
-``tinyllama-1.1b`` is. Parameters keep ``repro``'s layout: ``params
+Counterpart of ``repro/models/transformer.py`` for the dense decoders that
+``tinyllama-1.1b`` (``("global",)``) and ``gemma2-2b`` (``("local",
+"global")`` with attention and logit softcaps, sandwich norms and scaled
+embeddings) are. Parameters keep ``repro``'s layout: ``params
 ["blocks"][pi]`` holds pattern entry ``pi`` with every leaf stacked along a
 leading ``R = n_layers // len(block_pattern)`` axis, and where ``repro``
-scans over that axis the port runs a Python loop over ``r``. Quantization
-state for stacked sites is stacked the same way and sliced per layer
-(``_layer_qc``), so site keys are ``repro``'s letter for letter
+scans over that axis the port runs a Python loop over ``r``; like
+``repro``, it runs every layer of entry 0, then every layer of entry 1.
+Quantization state for stacked sites is stacked the same way and sliced
+per layer (``_layer_qc``), so site keys are ``repro``'s letter for letter
 (``p0_global/attn/attn_q.w``, ``head.w``).
 
 Entry points:
@@ -19,8 +23,8 @@ Entry points:
                                                    -> logits, cache
   init_paged_cache(cfg, batch, num_blocks, block_size, ...)
 
-Other block kinds (local, ssm, recurrent), MoE, qk-norm, qkv-bias, M-RoPE,
-sandwich norms and modality stubs come with ROADMAP queue 1 item 14.
+Other block kinds (ssm, recurrent), MoE, qk-norm, qkv-bias, M-RoPE and
+modality stubs come with ROADMAP queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -38,15 +42,18 @@ from .layers import COMPUTE_DTYPE, glu_mlp, init_glu_mlp, qmatmul, rms_norm, \
 
 
 def check_supported(cfg: ModelConfig):
-    """Reject configs outside this slice (dense global attention + SwiGLU)."""
+    """Reject configs outside the ported decoders: attention blocks (global
+    or local) in a pattern that divides the depth, SwiGLU or GeGLU."""
     unported = []
-    if cfg.block_pattern != ("global",):
-        unported.append(f"block_pattern={cfg.block_pattern}")
+    if not set(cfg.block_pattern) <= {"global", "local"} \
+            or cfg.remainder_kinds:
+        unported.append(f"block_pattern={cfg.block_pattern} over "
+                        f"{cfg.n_layers} layers")
     if cfg.n_experts:
         unported.append("MoE")
-    if cfg.mlp != "swiglu":
+    if cfg.mlp not in ("swiglu", "geglu"):
         unported.append(f"mlp={cfg.mlp}")
-    for flag in ("qkv_bias", "qk_norm", "post_norm", "scale_embed"):
+    for flag in ("qkv_bias", "qk_norm"):
         if getattr(cfg, flag):
             unported.append(flag)
     if cfg.mrope_sections is not None:
@@ -74,14 +81,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
     reps = cfg.pattern_repeats
     d = cfg.d_model
-    block = {
-        "ln1": torch.zeros((reps, d), device=dev),
-        "attn": attn.init_attn(cfg, reps=reps, generator=gen, device=dev),
-        "ln2": torch.zeros((reps, d), device=dev),
-        "mlp": init_glu_mlp(d, cfg.d_ff, reps=reps, generator=gen,
-                            device=dev),
-    }
-    params = {"blocks": [block], "rem": [],
+    blocks = []
+    for _ in cfg.block_pattern:
+        block = {
+            "ln1": torch.zeros((reps, d), device=dev),
+            "attn": attn.init_attn(cfg, reps=reps, generator=gen, device=dev),
+            "ln2": torch.zeros((reps, d), device=dev),
+            "mlp": init_glu_mlp(d, cfg.d_ff, reps=reps, generator=gen,
+                                device=dev),
+        }
+        if cfg.post_norm:       # gemma2's sandwich norms
+            block["ln1_post"] = torch.zeros((reps, d), device=dev)
+            block["ln2_post"] = torch.zeros((reps, d), device=dev)
+        blocks.append(block)
+    params = {"blocks": blocks, "rem": [],
               "final_norm": torch.zeros((d,), device=dev)}
     params["embed"] = torch.randn((cfg.padded_vocab, d), generator=gen,
                                   device=dev) * 0.02
@@ -200,14 +213,15 @@ def _absorb_stats(qc: QuantContext, subs: list, stacked: bool):
 
 
 def _layers(qc: QuantContext, params, cache, cfg: ModelConfig):
-    """Yield (child qc, block params, cache entry, prefix) per layer."""
+    """Yield (child qc, block params, cache entry, prefix, kind) per layer,
+    in ``repro``'s order: every layer of pattern entry 0, then entry 1."""
     reps = cfg.pattern_repeats
     for pi, kind in enumerate(cfg.block_pattern):
         prefix = f"p{pi}_{kind}"
         for r in range(reps):
             lc = {name: t[r] for name, t in cache["layers"][pi].items()}
             yield (_layer_qc(qc, prefix, r, reps > 1),
-                   _tree_index(params["blocks"][pi], r), lc, prefix)
+                   _tree_index(params["blocks"][pi], r), lc, prefix, kind)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +231,10 @@ def _layers(qc: QuantContext, params, cache, cfg: ModelConfig):
 
 def _embed(qc: QuantContext, params, batch, cfg: ModelConfig):
     h = params["embed"][batch].to(COMPUTE_DTYPE)
+    if cfg.scale_embed:
+        # gemma2: times sqrt(d_model) rounded to bf16, a product rounded to
+        # bf16; a Python scalar, so a decode tick copies nothing to the card
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=COMPUTE_DTYPE).item()
     return qc.input(h).to(COMPUTE_DTYPE)
 
 
@@ -235,37 +253,43 @@ def _head(qc: QuantContext, params, h, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _apply_block_full(qc, bp, h, cfg: ModelConfig, *, positions,
+def _post_norm(bp, name: str, y, cfg: ModelConfig):
+    """gemma2's sandwich norm on a sublayer's output (``ln1_post`` after
+    attention, ``ln2_post`` after the MLP); the identity elsewhere."""
+    return rms_norm(y, bp[name], cfg.norm_eps) if cfg.post_norm else y
+
+
+def _apply_block_full(qc, bp, h, cfg: ModelConfig, kind: str, *, positions,
                       window=None):
     """Full-sequence block. Returns (h, (k, v)) with k/v in bf16."""
     resid = h
     hn = rms_norm(h, bp["ln1"], cfg.norm_eps)
     with qc.scope("attn"):
-        y, (k, v) = attn.attention_train(qc, bp["attn"], hn, cfg,
+        y, (k, v) = attn.attention_train(qc, bp["attn"], hn, cfg, kind,
                                          positions=positions, window=window)
-    h = resid + y.to(resid.dtype)
+    h = resid + _post_norm(bp, "ln1_post", y, cfg).to(resid.dtype)
     resid = h
     hn = rms_norm(h, bp["ln2"], cfg.norm_eps)
     with qc.scope("ffn"):
         y = glu_mlp(qc, bp["mlp"], hn, cfg.mlp)
-    h = resid + y.to(resid.dtype)
+    h = resid + _post_norm(bp, "ln2_post", y, cfg).to(resid.dtype)
     return h, (k.to(COMPUTE_DTYPE), v.to(COMPUTE_DTYPE))
 
 
-def _apply_block_decode(qc, bp, h, pool, pos, cfg: ModelConfig, *,
-                        block_table, write_mask, window=None):
+def _apply_block_decode(qc, bp, h, pool, pos, cfg: ModelConfig, kind: str,
+                        *, block_table, write_mask, window=None):
     resid = h
     hn = rms_norm(h, bp["ln1"], cfg.norm_eps)
     with qc.scope("attn"):
         y, _ = attn.attention_decode_paged(
-            qc, bp["attn"], hn, pool, block_table, pos, cfg,
+            qc, bp["attn"], hn, pool, block_table, pos, cfg, kind,
             write_mask=write_mask, window=window)
-    h = resid + y.to(resid.dtype)
+    h = resid + _post_norm(bp, "ln1_post", y, cfg).to(resid.dtype)
     resid = h
     hn = rms_norm(h, bp["ln2"], cfg.norm_eps)
     with qc.scope("ffn"):
         y = glu_mlp(qc, bp["mlp"], hn, cfg.mlp)
-    return resid + y.to(resid.dtype)
+    return resid + _post_norm(bp, "ln2_post", y, cfg).to(resid.dtype)
 
 
 def _require_paged(block_table):
@@ -302,7 +326,7 @@ def forward_train(qc: QuantContext, params, batch, cfg: ModelConfig):
             sub = _layer_qc(qc, prefix, r, reps > 1)
             with sub.scope(prefix):
                 h, _ = _apply_block_full(
-                    sub, _tree_index(params["blocks"][pi], r), h, cfg,
+                    sub, _tree_index(params["blocks"][pi], r), h, cfg, kind,
                     positions=positions)
             subs.append(sub)
         _absorb_stats(qc, subs, reps > 1)
@@ -320,8 +344,9 @@ def prefill_slot(qc: QuantContext, params, tokens, plen: int, cache, slot: int,
     """Batched prefill for one serving slot through the paged cache.
 
     ``tokens``: (1, S_pad) int, right-padded; ``plen`` the real length. Runs
-    the whole padded prompt through one causal forward (under the engine's
-    ``(window, sink_tokens)`` tuple ``window``, DESIGN.md §17), scatters each
+    the whole padded prompt through one causal forward (each layer under
+    the engine's ``(window, sink_tokens)`` tuple ``window`` as its kind
+    resolves it, DESIGN.md §17; on the card through K7), scatters each
     layer's K/V into the pools at the physical ids of the slot's table row
     (``kv_pool.write_prompt_blocks``, blocks below ``start_blk`` skipped),
     and sets the slot's pos to ``plen``. The pools and ``cache["pos"]`` are
@@ -335,9 +360,9 @@ def prefill_slot(qc: QuantContext, params, tokens, plen: int, cache, slot: int,
     row = block_table[slot]
     bs = cache["layers"][0]["k"].shape[-3]
     nblk = -(-plen // bs)
-    for sub, bp, pool, prefix in _layers(qc, params, cache, cfg):
+    for sub, bp, pool, prefix, kind in _layers(qc, params, cache, cfg):
         with sub.scope(prefix):
-            h, (k, v) = _apply_block_full(sub, bp, h, cfg,
+            h, (k, v) = _apply_block_full(sub, bp, h, cfg, kind,
                                           positions=positions, window=window)
         kv_pool.write_prompt_blocks(pool, k[0], v[0], row, start_blk, nblk,
                                     bs)
@@ -371,19 +396,20 @@ def decode_step(qc: QuantContext, params, cache, tokens, cfg: ModelConfig, *,
 
     ``cache["pos"]`` is per row, so slots decode at independent positions.
     ``advance`` ((B,) bool/int) selects which rows bump their position;
-    rows that do not advance write their K/V to the garbage block. Every
+    rows that do not advance write their K/V to the garbage block. Each
     layer attends under the engine's ``(window, sink_tokens)`` tuple
-    ``window`` (``None``: causal only). The pools are written IN PLACE; the
-    returned cache carries a new ``pos``.
+    ``window`` as its kind resolves it (``None``: causal, and local layers
+    within ``cfg.window``). The pools are written IN PLACE; the returned
+    cache carries a new ``pos``.
     Returns (logits (B, 1, V), cache).
     """
     _require_paged(block_table)
     pos = cache["pos"]
     write_mask = None if advance is None else advance.to(torch.bool)
     h = _embed(qc, params, tokens[:, None], cfg)
-    for sub, bp, pool, prefix in _layers(qc, params, cache, cfg):
+    for sub, bp, pool, prefix, kind in _layers(qc, params, cache, cfg):
         with sub.scope(prefix):
-            h = _apply_block_decode(sub, bp, h, pool, pos, cfg,
+            h = _apply_block_decode(sub, bp, h, pool, pos, cfg, kind,
                                     block_table=block_table,
                                     write_mask=write_mask, window=window)
     logits = _head(qc, params, h, cfg)

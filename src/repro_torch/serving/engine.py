@@ -29,6 +29,12 @@ Counterpart of ``repro/serving/engine.py``, reduced to this slice:
     sync, the blocks the window no longer reaches
     (``kv_pool.evict_out_of_window``), so a slot holds O(window) blocks.
 
+Models: the dense global decoder (``tinyllama-1.1b``) with every option
+above, and ``gemma2-2b``'s local/global layers (uniform or float weights
+over a bf16 pool, with or without a window; other pools, a mixed 2/4-bit
+artifact and ``act_bits`` there raise, naming item 14). On the card every
+prefill's attention runs K7.
+
 Not ported yet, each rejected with ``NotImplementedError`` naming its
 ROADMAP item: the ring layout, chunked prefill (so also between-chunk
 eviction), undersized pools, sampling with temperature. Prefix sharing,
@@ -171,6 +177,17 @@ def make_act_specs(cfg: ModelConfig, params, act_bits: int, *,
 # ---------------------------------------------------------------------------
 
 
+def _raise_on_layered(layered: bool, options: dict, cfg: ModelConfig):
+    """Raise for an engine option that no test yet holds to repro on a
+    layer pattern other than ("global",)."""
+    hit = [name for name, on in options.items() if on]
+    if layered and hit:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(hit)} over block_pattern="
+            f"{cfg.block_pattern} is ported with ROADMAP queue 1 item 14 "
+            f"(other block kinds and archs)")
+
+
 @dataclasses.dataclass
 class Request:
     """One unit of the serving lifecycle: waiting -> slot -> finished."""
@@ -256,6 +273,12 @@ class ServingEngine:
         if kv_dtype not in ("bf16", "fp32", "int8", "int4"):
             raise ValueError(f"kv_dtype {kv_dtype!r}")
         tfm.check_supported(cfg)
+        # held to repro on the dense global decoder; on another layer
+        # pattern (gemma2's local/global) they come with item 14
+        layered = cfg.block_pattern != ("global",)
+        _raise_on_layered(layered, {
+            f"kv_dtype={kv_dtype!r}": kv_dtype != "bf16",
+            "act_bits": act_bits is not None}, cfg)
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
         self.cfg = cfg
@@ -277,6 +300,9 @@ class ServingEngine:
         else:
             self.qweights, self.export_ledger = export_int_model(
                 params, cfg, quant_state, device=self.device)
+            _raise_on_layered(layered, {
+                "a mixed 2/4-bit artifact": any(
+                    q.packed for q in self.qweights.values())}, cfg)
             specs = specs_from_state(quant_state["gates"],
                                      quant_state["betas"],
                                      quant_state["signed"])

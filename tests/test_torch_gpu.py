@@ -2,10 +2,11 @@
 version at small and ragged shapes (K4 also bit for bit against K1 on the
 unpacked codes, K3, K5 and K6 bit for bit against their plain versions, K6
 also against K5 on the unpacked codes, K2c under a window that does not
-bind bit for bit against K2a/K2b), the serving engine on the card, uniform
-int8 and mixed 2/4/8-bit over an int4 KV pool, under a sliding window and
-with integer GEMMs (``act_bits=8``), and CGMQ train steps on the card
-against the same steps on the CPU.
+bind bit for bit against K2a/K2b, K7 within a stated tolerance), the
+serving engine on the card, uniform int8 and mixed 2/4/8-bit over an int4
+KV pool, under a sliding window, with integer GEMMs (``act_bits=8``) and
+on gemma2's local/global layers (prefill through K7), and CGMQ train steps
+on the card against the same steps on the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it also runs where only PyTorch is installed (the
@@ -28,6 +29,9 @@ from repro_torch.core.gates import gate_to_bits
 from repro_torch.core.quantizer import affine_grid
 from repro_torch.data.synthetic import lm_tokens
 from repro_torch.kernels.fake_quant.fake_quant import fake_quant
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention)
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.fake_quant.ref import fake_quant_ref
 from repro_torch.launch import steps as train_steps
 from repro_torch.optim.adam import tree_leaves
@@ -61,6 +65,10 @@ K2_TOL_FACTOR = 2.0 ** -8
 # K2b against the plain version with q in fp32 (no bf16 rounding at all):
 # the same fp32 function, sums in another order (see chip_smoke.py)
 K2B_F32_RTOL = 1e-4
+# K7 against its plain version: the same fp32 function (sums in another
+# order), 1e-4 of max|v|; a bf16 output may land one bf16 ulp apart on
+# top (see chip_smoke.py)
+K7_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -432,13 +440,15 @@ def test_int_engine_on_card_runs_through_k5_k6(cuda, state, kv_dtype):
     assert acts["fallback_sites"] == []
 
 
-@pytest.mark.parametrize("cell", ["uniform", "window", "int"])
+@pytest.mark.parametrize("cell", ["uniform", "window", "int", "gemma2"])
 def test_decode_tick_runs_one_synchronizing_operation(cuda, cell):
     """A full-batch decode tick runs exactly one synchronizing CUDA
     operation, its host transfer, as PyTorch's sync debug mode counts them:
     over a bf16 pool, under a binding window (the in-tick eviction must
-    stay on the device) and through the integer GEMMs."""
-    cfg = get_smoke_config("tinyllama-1.1b")
+    stay on the device), through the integer GEMMs and on gemma2's
+    local/global layers."""
+    cfg = get_smoke_config("gemma2-2b" if cell == "gemma2"
+                           else "tinyllama-1.1b")
     params = _to(tfm.init_params(cfg, 0, device="cpu"), cuda)
     extra = {"window": {"attention_window": WindowSpec(16, 1)},
              "int": {"act_bits": 8}}.get(cell, {})
@@ -460,6 +470,79 @@ def test_decode_tick_runs_one_synchronizing_operation(cuda, cell):
              if "called a synchronizing" in str(w.message)]
     assert len(syncs) == 1
     assert eng.stats["tick_syncs"] == eng.stats["decode_ticks"] == 3
+
+
+def k7_tolerance(ref, v):
+    """Elementwise bound of K7 against its plain version: 1e-4 of max|v|,
+    plus one ulp of a bf16 output."""
+    tol = K7_RTOL * float(v.float().abs().max())
+    if ref.dtype == torch.bfloat16:
+        mag = ref.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+        return tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return torch.full_like(ref, tol, dtype=torch.float32)
+
+
+# (S, causal, window, sinks, softcap): ragged S over two 64-query tiles;
+# a window that skips whole key tiles, with sinks covering a tile in part;
+# gemma2's softcap; no mask but the causal one; not causal at all
+K7_CASES = [(77, True, None, 0, None), (200, True, 40, 6, None),
+            (200, True, 64, 0, 50.0), (130, False, None, 0, None)]
+
+
+@pytest.mark.parametrize("hd", [16, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", K7_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, hd, dtype, case):
+    """K7 on the model's (B, S, H, hd) tensors read through (B, H, S, hd)
+    strides, GQA 4 over 2, against the plain version on the same inputs;
+    its output is laid out (B, S, H, hd) transposed."""
+    s, causal, window, sinks, cap = case
+    g = torch.Generator(device=cuda).manual_seed(s + hd)
+    q, k, v = (torch.randn((2, s, h, hd), generator=g, device=cuda)
+               .to(dtype).transpose(1, 2) for h in (4, 2, 2))
+    flash_attention.launches = 0
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          sinks=sinks, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1
+    assert got.dtype == dtype and got.transpose(1, 2).is_contiguous()
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window,
+                              sinks=sinks, softcap=cap)
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= k7_tolerance(ref, v)).all()), float(err.max())
+
+
+def test_gemma2_engine_on_card_runs_through_k7(cuda):
+    """Smoke gemma2 (local/global layers, softcaps) served on the card:
+    every prefill's attention is K7, n_layers launches a prefill and none
+    in a decode tick; decode goes through K2c on local layers and K2a on
+    global ones; every GEMM through K1."""
+    cfg = get_smoke_config("gemma2-2b")
+    params = _to(tfm.init_params(cfg, 0, device="cpu"), cuda)
+    eng = ServingEngine(cfg, params, slots=3, max_seq=64,
+                        quant_state=make_uniform_quant_state(cfg, params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (3, 9, 20, 7)]
+    kernels = (quant_matmul, flash_attention, paged_attention,
+               paged_attention_window, fake_quant)
+    for fn in kernels:
+        fn.launches = 0
+    reqs = [eng.submit(Request(rid=i, prompt=p, max_new=6))
+            for i, p in enumerate(prompts)]
+    while not all(r.done for r in reqs):
+        before = (flash_attention.launches, eng.stats["prefill_forwards"])
+        eng.step()
+        assert flash_attention.launches - before[0] == cfg.n_layers * (
+            eng.stats["prefill_forwards"] - before[1])
+    st = eng.stats
+    assert all(len(r.output) == 6 and all(0 <= t < cfg.vocab_size
+                                          for t in r.output) for r in reqs)
+    assert st["tick_syncs"] == st["decode_ticks"]
+    half = cfg.n_layers // 2
+    forwards = st["prefill_forwards"] + st["decode_ticks"]
+    assert tuple(fn.launches for fn in kernels) == (
+        (7 * cfg.n_layers + 1) * forwards, cfg.n_layers * len(prompts),
+        half * st["decode_ticks"], half * st["decode_ticks"], 0)
 
 
 @pytest.mark.parametrize("mn", [(1, 1), (3, 101), (64, 257), (300, 2048)])

@@ -472,4 +472,4 @@ def test_unported_sampling_and_archs_raise():
     with pytest.raises(NotImplementedError, match="item 10"):
         SamplingParams(temperature=0.7)
     with pytest.raises(NotImplementedError, match="item 14"):
-        ttfm.init_params(get_smoke_config("gemma2-2b"), 0, device="cpu")
+        ttfm.init_params(get_smoke_config("mixtral-8x22b"), 0, device="cpu")
