@@ -81,8 +81,11 @@ slice 5) bit for bit against their plain versions at every GEMM shape of
 the int cells, with both activation loaders (int8 codes, and fp32
 activations quantized in the kernel), and K6 bit for bit against K5 on the
 unpacked codes, and K7 (whole-prompt flash attention, slice 6) within its
-stated tolerance at tinyllama's and gemma2's prefill shapes, a ragged S
-and fp32 operands. Every prefill on the card runs K7, so the tinyllama
+stated tolerance at tinyllama's and gemma2's prefill shapes, a ragged S,
+fp32 operands, head_dim 128 and Hq == Hkv, each case naming the kernel it
+ran (bf16 at head_dim 64-256: tensor cores; fp32: FMA); the build phase
+shows the tensor-core instances' HGMMA and UTMALDG instructions (SASS, by
+cuobjdump). Every prefill on the card runs K7, so the tinyllama
 serve cells count it too (22 a prefill, none in a tick); the training
 forwards do not (K7 has no backward), calibration does. It holds K3
 (fused gated fake-quant) bit for bit
@@ -139,8 +142,11 @@ G2_PARITY_WINDOW, G2_PARITY_PLEN = 64, 200
 # tinyllama's prefill at the serve cells' largest bucket and under the
 # serve-window spec (window 256, 2 sink blocks of 8); gemma2's local and
 # global layers at [serve-gemma2]'s longest bucket; a ragged S over two
-# batch rows; fp32 operands. The first is the kernels line's entry: SDPA
-# computes exactly its function (no softcap, which SDPA lacks).
+# batch rows; fp32 operands (the FMA kernel); head_dim 128 at qwen3-4b's
+# heads (32 over 8); Hq == Hkv at musicgen-large's (32, hd 64), two
+# ragged batch rows under a window whose 4 sinks cover a key tile in part.
+# The first is the kernels line's entry: SDPA computes exactly its function
+# (no softcap, which SDPA lacks).
 K7_CASES = (
     ("tinyllama-prefill", 1, 32, 4, 64, 512, "bfloat16", None, 0, None),
     ("tinyllama-window", 1, 32, 4, 64, 1024, "bfloat16", WIN_WINDOW,
@@ -149,6 +155,8 @@ K7_CASES = (
     ("gemma2-global", 1, 8, 4, 256, G2_MAX_SEQ, "bfloat16", None, 0, 50.0),
     ("ragged", 2, 8, 4, 256, 333, "bfloat16", 64, 5, 50.0),
     ("fp32", 1, 8, 4, 256, 1024, "float32", 256, 0, 50.0),
+    ("qwen3-hd128", 1, 32, 8, 128, 2048, "bfloat16", None, 0, None),
+    ("mha-window", 2, 32, 32, 64, 777, "bfloat16", 128, 4, None),
 )
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 FLOP/s outside the
@@ -183,14 +191,6 @@ K4_RTOL = K1_RTOL
 # 2^-9 of itself, so the output moves by at most 2^-9 * max|v|; we allow
 # twice that, plus 1e-5 of fp32 noise.
 K2_TOL_FACTOR = 2.0 ** -8
-# K7 tolerances against its plain version, which computes the same fp32
-# function (scores, softmax statistics, probabilities and PV sums in fp32)
-# with its sums in another order: fp32 outputs within 1e-4 of max|v|, a
-# wide margin over fp32 reassociation across up to 4608 keys that a mask,
-# tile or head-indexing fault (an error of order max|v|) still breaks;
-# bf16 outputs, each side rounding its own fp32 result, within one bf16
-# ulp of the output plus 1e-5 of max|v|.
-K7_F32_RTOL, K7_BF16_RTOL = 1e-4, 1e-5
 # K2b tolerances. Against the plain version:
 # repro_torch.kernels.paged_attention.ref.bf16_rounding_tolerance, derived
 # there from the plain version's bf16 roundings of the dequantized K and V
@@ -261,6 +261,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Mean host wall time of one call of ``fn``, which only enqueues work,
+    over ``iters`` calls; the queue is drained before and after."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
 def graph_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` calls captured into one
     CUDA graph and replayed: for kernels whose device time per launch is
@@ -319,6 +335,28 @@ def phase_device():
     return line
 
 
+def sass_counts(name: str):
+    """{kernel: {op: count}} of wgmma (HGMMA) and TMA load (UTMALDG)
+    instructions in each kernel of a built library, read from its SASS with
+    the cuobjdump that ships beside the toolkit's nvcc (fails without it)."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    check(tool.exists(), f"no cuobjdump beside nvcc ({tool}): the tensor-core "
+          f"instances' SASS cannot be read")
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(("HGMMA", "UTMALDG"), 0)
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += op in ln
+    return counts
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -330,6 +368,15 @@ def phase_build():
         print(f"[build] {name}: nvcc {r['seconds']:.2f} s")
         for ln in r["ptxas"]:
             print(f"[build]   {ln}")
+    # K7's tensor-core instances (tc::kernel<64/128/256>) must issue wgmma
+    # over TMA-staged tiles: HGMMA and UTMALDG in their SASS
+    counts = sass_counts("flash_attention")
+    for fn, c in counts.items():
+        print(f"[build] flash_attention SASS {fn}: "
+              + ", ".join(f"{op} {n}" for op, n in c.items()))
+    tc = {fn: c for fn, c in counts.items() if "tc6kernel" in fn}
+    check(len(tc) == 3 and all(min(c.values()) > 0 for c in tc.values()),
+          f"K7's tensor-core instances lack HGMMA or UTMALDG: {tc}")
 
 
 def _prompts(vocab: int, lo: int = PROMPT_LO, hi: int = PROMPT_HI):
@@ -1031,14 +1078,21 @@ def k7_case(case, gen, card: str):
     attention_train hands them; kernel, plain and library (SDPA over the
     same tensors and mask) times, and the bound: the inputs and output
     moved once, the attended (q, k) pairs' 4 hd FLOPs at the tensor-core
-    peak of the operands' type. Returns a result dict."""
+    peak of the operands' type. Kernel and library times: ``ms`` and
+    ``library_ms`` over back-to-back calls from Python, as every K7 time
+    before the tensor-core kernel was taken, so the host's work per call
+    counts where it exceeds the device's; ``graph_ms`` and
+    ``library_graph_ms`` the device time alone, of a replayed CUDA graph;
+    ``host_ms`` the host's wall time per wrapper call. Returns a result
+    dict."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, kernel_for)
     from repro_torch.kernels.flash_attention.ref import (attention_mask,
-                                                         flash_attention_ref)
+                                                         flash_attention_ref,
+                                                         k7_tolerance)
 
     name, b, hq, hkv, hd, s, dtype, window, sinks, cap = case
     dt = getattr(torch, dtype)
@@ -1050,14 +1104,10 @@ def k7_case(case, gen, card: str):
     torch.cuda.synchronize()
     vmax = float(v.float().abs().max())
     err = (got.float() - want.float()).abs()
-    if dt == torch.bfloat16:
-        mag = want.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
-        tol = K7_BF16_RTOL * vmax + torch.exp2(torch.floor(torch.log2(mag))
-                                               - 7)
-    else:
-        tol = torch.full_like(err, K7_F32_RTOL * vmax)
+    tol = k7_tolerance(want, v)
     res = {"case": name, "max_abs_err": float(err.max()),
-           "ok": bool((err <= tol).all())}
+           "ok": bool((err <= tol).all()), "kernel": kernel_for(dt, hd),
+           "worst": float((err / tol).max())}
     mask = attention_mask(s, window=window, sinks=sinks, device="cuda")
     lib_kw = {"is_causal": True} if window is None else {"attn_mask": mask}
 
@@ -1065,11 +1115,16 @@ def k7_case(case, gen, card: str):
         return F.scaled_dot_product_attention(q, k, v, scale=hd ** -0.5,
                                               enable_gqa=True, **lib_kw)
 
-    res["ms"] = time_ms(lambda: flash_attention(q, k, v, **kw), iters=10,
-                        warmup=2)
+    def kernel():
+        return flash_attention(q, k, v, **kw)
+
+    res["ms"] = time_ms(kernel, iters=10, warmup=2)
+    res["graph_ms"] = graph_ms(kernel, iters=10, warmup=2)
+    res["host_ms"] = host_ms(kernel)
     res["plain_ms"] = time_ms(lambda: flash_attention_ref(q, k, v, **kw),
                               iters=5, warmup=1)
     res["library_ms"] = time_ms(library, iters=10, warmup=2)
+    res["library_graph_ms"] = graph_ms(library, iters=10, warmup=2)
     lib_err = ""
     if cap is None:     # then SDPA computes the same function
         diff = float((library().float() - want.float()).abs().max())
@@ -1080,13 +1135,18 @@ def k7_case(case, gen, card: str):
     res["bound_ms"], res["bound_by"] = bound_ms(
         res["bytes"], res["flops"],
         BF16_FLOP_S if dt == torch.bfloat16 else FP32_FLOP_S)
-    print(f"[kernels] flash_attention {name}: B={b} Hq={hq} Hkv={hkv} "
-          f"hd={hd} S={s} {dtype} window={window} sinks={sinks} "
-          f"softcap={cap}: max_abs_err {res['max_abs_err']:.3e} (max|v| "
-          f"{vmax:.3f}) -> {'ok' if res['ok'] else 'FAIL'}; kernel "
-          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
-          f"(SDPA{', no softcap' if cap is not None else ''}) "
-          f"{res['library_ms']:.4f} ms{lib_err}; {pairs} attended pairs, "
+    print(f"[kernels] flash_attention {name} ({res['kernel']} kernel): "
+          f"B={b} Hq={hq} Hkv={hkv} hd={hd} S={s} {dtype} window={window} "
+          f"sinks={sinks} softcap={cap}: max_abs_err "
+          f"{res['max_abs_err']:.3e} (max|v| {vmax:.3f}; worst element "
+          f"{res['worst']:.3f} of its tolerance) -> "
+          f"{'ok' if res['ok'] else 'FAIL'}; kernel {res['ms']:.4f} ms "
+          f"back to back (replayed graph {res['graph_ms']:.4f}, "
+          f"{res['flops'] / res['graph_ms'] * 1e-9:.1f} TFLOP/s; host "
+          f"{res['host_ms']:.4f} a call), plain {res['plain_ms']:.4f} ms, "
+          f"library (SDPA{', no softcap' if cap is not None else ''}) "
+          f"{res['library_ms']:.4f} ms back to back (replayed graph "
+          f"{res['library_graph_ms']:.4f}){lib_err}; {pairs} attended pairs, "
           f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}) [{card}]")
     return res
 
@@ -2244,7 +2304,9 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, launches,
     packed GEMMs; library: ``torch._int_mm`` on the unpacked codes);
     flash_attention: one K7 launch at tinyllama's prefill shape (S 512,
     32 heads over 4 KV heads, hd 64, bf16; library SDPA, the same
-    function), its launches those of the uniform serve cell (22 a prefill).
+    function), its launches those of the uniform serve cell (22 a prefill);
+    ``ms`` and ``library_ms`` back to back from Python, ``graph_ms`` and
+    ``library_graph_ms`` the same calls' device time in a replayed graph.
     ``launches`` from each kernel's own path: serve, mixed serve, train,
     serve-window, serve-int, serve-int-mixed."""
     per_step = {(cfg.d_model, cfg.n_heads * cfg.head_dim): 2 * cfg.n_layers,
@@ -2356,7 +2418,8 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, launches,
          "max_abs_err": max(r["max_abs_err"] for r in k7.values()),
          "ms": k7p["ms"], "plain_ms": k7p["plain_ms"],
          "bound_ms": k7p["bound_ms"], "bound_by": k7p["bound_by"],
-         "library_ms": k7p["library_ms"]},
+         "library_ms": k7p["library_ms"], "graph_ms": k7p["graph_ms"],
+         "library_graph_ms": k7p["library_graph_ms"]},
     ]}
 
 

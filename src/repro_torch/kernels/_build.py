@@ -56,9 +56,9 @@ def build(names=SOURCES) -> dict[str, dict]:
     """Compile every library of ``names`` that is missing, all at once.
 
     Returns ``{name: {"seconds": wall time of its nvcc, "ptxas": the
-    register / shared-memory / spill lines of -Xptxas -v}}`` for the
-    libraries compiled by this call. Raises with nvcc's output if any
-    compile fails, after every started nvcc has exited.
+    entry-function, register, shared-memory and spill lines of -Xptxas
+    -v}}`` for the libraries compiled by this call. Raises with nvcc's
+    output if any compile fails, after every started nvcc has exited.
     """
     procs = {}
     for name in names:
@@ -83,7 +83,8 @@ def build(names=SOURCES) -> dict[str, dict]:
         report[name] = {
             "seconds": seconds,
             "ptxas": [ln.strip() for ln in log.splitlines()
-                      if "registers" in ln or "spill" in ln
+                      if "Compiling entry function" in ln
+                      or "registers" in ln or "spill" in ln
                       or "bytes smem" in ln],
         }
     if failed:

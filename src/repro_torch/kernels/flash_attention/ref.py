@@ -7,6 +7,29 @@ import torch
 
 NEG_INF = -1e30
 
+# K7's tolerances against this plain version, which computes the same fp32
+# function (scores, softmax statistics, probabilities and PV sums in fp32)
+# with its sums in another order: fp32 outputs within 1e-4 of max|v|, a
+# wide margin over fp32 reassociation across up to 4608 keys that a mask,
+# tile or head-indexing fault (an error of order max|v|) still breaks;
+# bf16 outputs, each side rounding its own fp32 result, within one bf16
+# ulp of the output plus 1e-5 of max|v|.
+K7_F32_RTOL, K7_BF16_RTOL = 1e-4, 1e-5
+
+
+def k7_tolerance(want: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Elementwise fp32 bound on |K7 - ``want``|, where ``want`` is this
+    plain version's output on the same operands and ``v`` their values:
+    K7_F32_RTOL of max|v| for fp32, one bf16 ulp of ``want`` plus
+    K7_BF16_RTOL of max|v| for bf16."""
+    vmax = float(v.float().abs().max())
+    if want.dtype == torch.bfloat16:
+        mag = want.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+        return K7_BF16_RTOL * vmax \
+            + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return torch.full(want.shape, K7_F32_RTOL * vmax, dtype=torch.float32,
+                      device=want.device)
+
 
 def attention_mask(s: int, *, causal: bool = True, window: int | None = None,
                    sinks: int = 0, device=None) -> torch.Tensor:

@@ -103,10 +103,11 @@ def attention_train(qc: QuantContext, p, x, cfg: ModelConfig,
     within that window of the query or among the sinks (``_resolve_window``
     per ``kind``). Returns (y, (k, v)).
 
-    Through K7 (on the card, no gradient) the softmax probabilities stay
-    fp32 into the PV product, as in the TPU kernel; ``repro``'s einsums,
-    which every other run keeps, round them to bf16 first. K2a set the same
-    precedent for decode."""
+    Through K7 (on the card, no gradient) the softmax probabilities keep
+    fp32 accuracy into the PV product, as in the TPU kernel (its bf16
+    tensor-core kernel carries them as two bf16 terms); ``repro``'s
+    einsums, which every other run keeps, round them to bf16 first. K2a
+    set the same precedent for decode."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]

@@ -30,8 +30,9 @@ from repro_torch.core.quantizer import affine_grid
 from repro_torch.data.synthetic import lm_tokens
 from repro_torch.kernels.fake_quant.fake_quant import fake_quant
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention)
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    flash_attention, kernel_for)
+from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                     k7_tolerance)
 from repro_torch.kernels.fake_quant.ref import fake_quant_ref
 from repro_torch.launch import steps as train_steps
 from repro_torch.optim.adam import tree_leaves
@@ -65,10 +66,6 @@ K2_TOL_FACTOR = 2.0 ** -8
 # K2b against the plain version with q in fp32 (no bf16 rounding at all):
 # the same fp32 function, sums in another order (see chip_smoke.py)
 K2B_F32_RTOL = 1e-4
-# K7 against its plain version: the same fp32 function (sums in another
-# order), 1e-4 of max|v|; a bf16 output may land one bf16 ulp apart on
-# top (see chip_smoke.py)
-K7_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -472,34 +469,37 @@ def test_decode_tick_runs_one_synchronizing_operation(cuda, cell):
     assert eng.stats["tick_syncs"] == eng.stats["decode_ticks"] == 3
 
 
-def k7_tolerance(ref, v):
-    """Elementwise bound of K7 against its plain version: 1e-4 of max|v|,
-    plus one ulp of a bf16 output."""
-    tol = K7_RTOL * float(v.float().abs().max())
-    if ref.dtype == torch.bfloat16:
-        mag = ref.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
-        return tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return torch.full_like(ref, tol, dtype=torch.float32)
-
-
-# (S, causal, window, sinks, softcap): ragged S over two 64-query tiles;
-# a window that skips whole key tiles, with sinks covering a tile in part;
-# gemma2's softcap; no mask but the causal one; not causal at all
+# (S, causal, window, sinks, softcap): ragged S over the FMA kernel's
+# 64-query tiles; a window that skips whole key tiles, with sinks covering
+# a tile in part; gemma2's softcap; no mask but the causal one; not causal
+# at all; then S against the tensor-core kernel's 128-query tiles and its
+# 64/128-key tiles: one query, one row short, exact, one row over, and 333
+# (ragged in both) under a window with 5 sinks (a sink tile covered in
+# part) and the softcap, causal and not
 K7_CASES = [(77, True, None, 0, None), (200, True, 40, 6, None),
-            (200, True, 64, 0, 50.0), (130, False, None, 0, None)]
+            (200, True, 64, 0, 50.0), (130, False, None, 0, None),
+            (1, True, None, 0, None), (127, True, None, 0, None),
+            (128, True, None, 0, 50.0), (129, False, None, 0, None),
+            (333, True, 64, 5, 50.0), (333, False, None, 0, 50.0)]
 
 
-@pytest.mark.parametrize("hd", [16, 64, 256])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", K7_CASES)
-def test_flash_attention_kernel_matches_plain(cuda, hd, dtype, case):
+def test_flash_attention_kernel_matches_plain(cuda, hd, dtype, case, heads):
     """K7 on the model's (B, S, H, hd) tensors read through (B, H, S, hd)
-    strides, GQA 4 over 2, against the plain version on the same inputs;
-    its output is laid out (B, S, H, hd) transposed."""
+    strides, two batch rows, GQA ratios 1, 2 and 8, against the plain
+    version on the same inputs; its output is laid out (B, S, H, hd)
+    transposed. bf16 at hd 64, 128 and 256 runs the tensor-core kernel,
+    the rest the FMA kernel (``kernel_for``)."""
     s, causal, window, sinks, cap = case
-    g = torch.Generator(device=cuda).manual_seed(s + hd)
+    hq, hkv = heads
+    g = torch.Generator(device=cuda).manual_seed(s + hd + hq * hkv)
     q, k, v = (torch.randn((2, s, h, hd), generator=g, device=cuda)
-               .to(dtype).transpose(1, 2) for h in (4, 2, 2))
+               .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv))
+    assert kernel_for(dtype, hd) == ("tensor-core" if dtype == torch.bfloat16
+                                     and hd >= 64 else "fma")
     flash_attention.launches = 0
     got = flash_attention(q, k, v, causal=causal, window=window,
                           sinks=sinks, softcap=cap)
@@ -510,6 +510,25 @@ def test_flash_attention_kernel_matches_plain(cuda, hd, dtype, case):
                               sinks=sinks, softcap=cap)
     err = (got.float() - ref.float()).abs()
     assert bool((err <= k7_tolerance(ref, v)).all()), float(err.max())
+
+
+def test_flash_attention_tensor_cores_reject_unaligned_operands(cuda):
+    """The tensor-core kernel's TMA maps need (batch, head, position)
+    strides that are multiples of 16 bytes and a 16-byte aligned base: a
+    (B, S, H, 65) bf16 tensor cut to hd 64, or one shifted by an element,
+    raises ValueError before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    wide = torch.randn((1, 40, 2, 65), generator=g, device=cuda).to(
+        torch.bfloat16)
+    flat = torch.randn((1 * 40 * 2 * 64 + 1,), generator=g,
+                       device=cuda).to(torch.bfloat16)
+    odd_stride = wide[..., :64].transpose(1, 2)
+    odd_base = flat[1:].view(1, 40, 2, 64).transpose(1, 2)
+    flash_attention.launches = 0
+    for q in (odd_stride, odd_base):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention(q, q, q)
+    assert flash_attention.launches == 0
 
 
 def test_gemma2_engine_on_card_runs_through_k7(cuda):
