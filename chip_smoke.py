@@ -201,6 +201,10 @@ K2_TOL_FACTOR = 2.0 ** -8
 # margin over fp32 reassociation that a wrong nibble or scale group (an
 # error of order max|v|) still breaks.
 K2B_F32_RTOL = 1e-4
+# K2's calls back to back, and SDPA's beside them, are timed over this many
+# calls: at tinyllama's shapes both are host-bound, and 20 calls leave the
+# host's noise in the comparison
+K2_ITERS = 200
 # Path parity tolerance: activations are bf16 between layers in both runs;
 # kernel-vs-plain fp32 reassociation flips a few bf16 roundings (2^-8
 # relative each), which two layers and the head carry to the logits. We
@@ -437,15 +441,55 @@ def k1_case(m: int, k: int, n: int, gen, card: str):
     return res
 
 
-def k2_case(softcap, gen, card: str, max_pos: int):
-    """K2a against its plain version at the decode shape (B=8, KV=4, G=8,
-    hd=64, bs=8) with ragged pos and -1 table entries past each row."""
+def sdpa_yardstick(q, kd, vd, table, valid, limit: int = 64):
+    """K2's library yardstick: SDPA over each row's attended keys (``valid``,
+    (B, max_blocks * bs) bool), gathered from the pools ``kd``/``vd``
+    through ``table`` beforehand (the gather, and for a quantized pool the
+    dequantization, are not timed), in bf16, GQA heads expanded, padded to
+    the longest row and masked. Returns a function that runs it over
+    enough copies of the gathered K and V, in turn, that consecutive calls
+    read them from HBM, as K2's timed calls read their pools."""
+    import itertools
+
     import torch
     import torch.nn.functional as F
 
+    b, kvh, g, hd = q.shape
+    bs, mb = kd.shape[1], table.shape[1]
+    lmax = int(valid.sum(dim=1).max())
+    idx = torch.sort((~valid).to(torch.int32), dim=1,
+                     stable=True).indices[:, :lmax]
+    safe = torch.where(table >= 0, table, 0).long()
+
+    def live(x):
+        xg = x[safe].reshape(b, mb * bs, kvh, hd).to(torch.bfloat16)
+        xg = xg.gather(1, idx[:, :, None, None].expand(b, lmax, kvh, hd))
+        return xg.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+
+    qs = q.reshape(b, kvh * g, 1, hd)
+    mask = valid.gather(1, idx)[:, None, None, :]
+    kg, vg = live(kd), live(vd)
+    kv = [(kg, vg)] + [(kg.clone(), vg.clone()) for _ in range(
+        copies_past_l2(2 * kg.numel() * 2, limit) - 1)]
+    turn = itertools.count()
+
+    def sdpa():
+        k_, v_ = kv[next(turn) % len(kv)]
+        return F.scaled_dot_product_attention(qs, k_, v_, attn_mask=mask)
+
+    return sdpa
+
+
+def k2_case(softcap, gen, card: str, max_pos: int):
+    """K2a against its plain version, and against the plain version in
+    fp32, at the decode shape (B=8, KV=4, G=8, hd=64, bs=8) with ragged pos
+    and -1 table entries past each row."""
+    import torch
+
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_attention
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.paged_attention.ref import (attended,
+                                                         paged_attention_ref)
 
     b, kvh, g, hd, bs = SLOTS, 4, 8, 64, BLOCK
     table_np, pos_np, nb, mb = _decode_table(max_pos)
@@ -459,12 +503,18 @@ def k2_case(softcap, gen, card: str, max_pos: int):
     vp = torch.randn((nb, bs, kvh, hd), generator=gen, device=dev).to(
         torch.bfloat16)
     got = paged_attention(q, kp, vp, table, pos, softcap=softcap)
+    again = paged_attention(q, kp, vp, table, pos, softcap=softcap)
     want = paged_attention_ref(q, kp, vp, table, pos, softcap=softcap)
+    f32 = paged_attention_ref(q.float(), kp, vp, table, pos, softcap=softcap)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
+    err32 = float((got - f32).abs().max())
     tol = K2_TOL_FACTOR * float(vp.abs().max()) + 1e-5
+    tol32 = K2B_F32_RTOL * float(vp.abs().max())
     res = {"softcap": softcap, "max_abs_err": err, "tol": tol,
-           "ok": err <= tol}
+           "max_abs_err_f32": err32, "tol_f32": tol32,
+           "repeat_bit_equal": bool(torch.equal(got, again))}
+    res["ok"] = err <= tol and err32 <= tol32 and res["repeat_bit_equal"]
 
     pools = [(kp.clone(), vp.clone())
              for _ in range(copies_past_l2(2 * kp.numel() * 2, 64))]
@@ -478,36 +528,34 @@ def k2_case(softcap, gen, card: str, max_pos: int):
         k_, v_ = pools[next(it) % len(pools)]
         paged_attention_ref(q, k_, v_, table, pos, softcap=softcap)
 
-    res["ms"] = time_ms(run_kernel)
+    res["ms"] = time_ms(run_kernel, K2_ITERS)
+    res["graph_ms"] = graph_ms(run_kernel)
+    res["host_ms"] = host_ms(lambda: paged_attention(q, kp, vp, table, pos,
+                                                     softcap=softcap))
     res["plain_ms"] = time_ms(run_plain)
-    res["library_ms"] = None
+    res["library_ms"] = res["library_graph_ms"] = None
     if softcap is None:
-        # yardstick: SDPA over the KV already gathered per row (the gather
-        # itself is not timed), GQA heads expanded, mask col <= pos
-        lmax = int(pos_np.max()) + 1
-        safe = torch.where(table >= 0, table, 0).long()
-        kg = kp[safe].reshape(b, mb * bs, kvh, hd)[:, :lmax]
-        vg = vp[safe].reshape(b, mb * bs, kvh, hd)[:, :lmax]
-        kg = kg.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-        vg = vg.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-        qs = q.reshape(b, kvh * g, 1, hd)
-        mask = (torch.arange(lmax, device=dev)[None, :]
-                <= pos[:, None])[:, None, None, :]
-        res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask))
+        sdpa = sdpa_yardstick(q, kp, vp, table, attended(pos, mb * bs))
+        res["library_ms"] = time_ms(sdpa, K2_ITERS)
+        res["library_graph_ms"] = graph_ms(sdpa)
     tokens = int(pos_np.sum()) + b          # tokens each row attends
     res["bytes"] = (2 * b * kvh * g * hd + 2 * 2 * tokens * kvh * hd
                     + 4 * b * mb + 4 * b + 4 * b * kvh * g * hd)
     res["flops"] = 4.0 * tokens * kvh * g * hd
     res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], res["flops"])
     lib = "n/a (no softcap in SDPA)" if res["library_ms"] is None \
-        else f"{res['library_ms']:.4f} ms"
+        else (f"{res['library_ms']:.4f} ms, graph "
+              f"{res['library_graph_ms']:.4f} ms")
     print(f"[kernels] paged_attention B={b} KV={kvh} G={g} hd={hd} bs={bs} "
           f"max_pos={int(pos_np.max())} softcap={softcap}: max_abs_err "
-          f"{err:.3e} (tol {tol:.3e}) -> {'ok' if res['ok'] else 'FAIL'}; "
-          f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-          f"library (SDPA) {lib}, bound {res['bound_ms'] * 1e3:.2f} us "
-          f"({res['bound_by']}) [{card}]")
+          f"{err:.3e} (tol {tol:.3e}), vs fp32 plain {err32:.3e} (tol "
+          f"{tol32:.3e}) -> {'ok' if res['ok'] else 'FAIL'}; two calls "
+          f"{'bit-identical' if res['repeat_bit_equal'] else 'DIFFER'}; "
+          f"kernel {res['ms']:.4f} ms back to back, {res['graph_ms']:.4f} "
+          f"ms graph (host {res['host_ms']:.4f} ms a call), plain "
+          f"{res['plain_ms']:.4f} ms, library (SDPA) {lib}, "
+          f"bound {res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}) "
+          f"[{card}]")
     return res
 
 
@@ -751,12 +799,11 @@ def k2b_case(kv_dtype: str, gen, card: str, max_pos: int):
     decode shape (B=8, KV=4, G=8, hd=64, bs=8) over an int8 or int4 pool
     quantized by the port's codec (groups of 32: ng = 2)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_attention_quant
     from repro_torch.kernels.paged_attention.ref import (
-        bf16_rounding_tolerance, paged_attention_ref)
+        attended, bf16_rounding_tolerance, paged_attention_ref)
     from repro_torch.quant.kv import KVQuantSpec, dequantize_kv, quantize_kv
 
     b, kvh, g, hd, bs = SLOTS, 4, 8, 64, BLOCK
@@ -773,6 +820,7 @@ def k2b_case(kv_dtype: str, gen, card: str, max_pos: int):
         for _ in range(2))
     kd, vd = dequantize_kv(kc, ks, spec), dequantize_kv(vc, vs, spec)
     got = paged_attention_quant(q, kc, vc, ks, vs, table, pos)
+    again = paged_attention_quant(q, kc, vc, ks, vs, table, pos)
     want = paged_attention_ref(q, kc, vc, table, pos, k_scale=ks, v_scale=vs)
     f32 = paged_attention_ref(q.float(), kc, vc, table, pos, k_scale=ks,
                               v_scale=vs)
@@ -783,7 +831,8 @@ def k2b_case(kv_dtype: str, gen, card: str, max_pos: int):
     tol32 = K2B_F32_RTOL * float(vd.abs().max())
     res = {"kv_dtype": kv_dtype, "max_abs_err": err, "tol": tol,
            "max_abs_err_f32": err32, "tol_f32": tol32,
-           "ok": err <= tol and err32 <= tol32}
+           "repeat_bit_equal": bool(torch.equal(got, again))}
+    res["ok"] = err <= tol and err32 <= tol32 and res["repeat_bit_equal"]
 
     per_copy = 2 * (kc.numel() + ks.numel() * 2)
     pools = [(kc.clone(), vc.clone(), ks.clone(), vs.clone())
@@ -798,21 +847,14 @@ def k2b_case(kv_dtype: str, gen, card: str, max_pos: int):
         k_, v_, ks_, vs_ = pools[next(it) % len(pools)]
         paged_attention_ref(q, k_, v_, table, pos, k_scale=ks_, v_scale=vs_)
 
-    res["ms"] = time_ms(run_kernel)
+    res["ms"] = time_ms(run_kernel, K2_ITERS)
+    res["graph_ms"] = graph_ms(run_kernel)
+    res["host_ms"] = host_ms(lambda: paged_attention_quant(
+        q, kc, vc, ks, vs, table, pos))
     res["plain_ms"] = time_ms(run_plain)
-    # yardstick: SDPA over the KV already gathered and dequantized per row
-    # (gather and dequantization not timed), GQA heads expanded, bf16
-    lmax = int(pos_np.max()) + 1
-    safe = torch.where(table >= 0, table, 0).long()
-    kg = kd[safe].reshape(b, mb * bs, kvh, hd)[:, :lmax].to(torch.bfloat16)
-    vg = vd[safe].reshape(b, mb * bs, kvh, hd)[:, :lmax].to(torch.bfloat16)
-    kg = kg.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-    vg = vg.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-    qs = q.reshape(b, kvh * g, 1, hd)
-    mask = (torch.arange(lmax, device=dev)[None, :]
-            <= pos[:, None])[:, None, None, :]
-    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, kg, vg, attn_mask=mask))
+    sdpa = sdpa_yardstick(q, kd, vd, table, attended(pos, mb * bs))
+    res["library_ms"] = time_ms(sdpa, K2_ITERS)
+    res["library_graph_ms"] = graph_ms(sdpa)
     tokens = int(pos_np.sum()) + b          # tokens each row attends
     vec_bytes = spec.bytes_per_vector()     # codes + fp16 scales
     res["bytes"] = (2 * b * kvh * g * hd + 2 * tokens * kvh * vec_bytes
@@ -822,9 +864,14 @@ def k2b_case(kv_dtype: str, gen, card: str, max_pos: int):
     print(f"[kernels] paged_attention_quant {kv_dtype} B={b} KV={kvh} G={g} "
           f"hd={hd} bs={bs} max_pos={int(pos_np.max())}: max_abs_err "
           f"{err:.3e} (tol {tol:.3e}), vs fp32 plain {err32:.3e} (tol "
-          f"{tol32:.3e}) -> {'ok' if res['ok'] else 'FAIL'}; kernel "
-          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
-          f"(SDPA, gathered dequantized KV) {res['library_ms']:.4f} ms, bound "
+          f"{tol32:.3e}), two calls "
+          f"{'bit-identical' if res['repeat_bit_equal'] else 'DIFFER'} -> "
+          f"{'ok' if res['ok'] else 'FAIL'}; kernel {res['ms']:.4f} ms "
+          f"back to back, {res['graph_ms']:.4f} ms graph (host "
+          f"{res['host_ms']:.4f} ms a call), plain {res['plain_ms']:.4f} "
+          f"ms, library (SDPA, gathered dequantized KV) "
+          f"{res['library_ms']:.4f} ms, graph "
+          f"{res['library_graph_ms']:.4f} ms, bound "
           f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}) [{card}]")
     return res
 
@@ -857,14 +904,14 @@ def _window_table(max_pos: int, window: int | None, sinks: int):
 
 def k2c_case(pool: str, window: int, sinks: int, gen, card: str,
              max_pos: int, timed: bool):
-    """K2c against its plain version at the decode shape (B=8, KV=4, G=8,
+    """K2c against its plain version, and against the plain version in
+    fp32, at the decode shape (B=8, KV=4, G=8,
     hd=64, bs=8, positions up to max_pos - 1) over a ``pool`` ("bf16",
     "fp32", "int8", "int4") pool, the table evicted as the engine leaves
     it; under a window that does not bind, also bit for bit against K2a or
     K2b. ``timed``: K2c, K2a/K2b on the unevicted table, the plain version
     and SDPA over the K/V gathered to the live span (L2-cold)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention.paged_attention import (
         paged_attention, paged_attention_quant, paged_attention_quant_window,
@@ -915,20 +962,27 @@ def k2c_case(pool: str, window: int, sinks: int, gen, card: str,
                                    **scales)
 
     got = run_k2c(pools, table)
+    again = run_k2c(pools, table)
     want = run_plain(pools, table)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     res = {"pool": pool, "window": window, "sinks": sinks,
-           "max_abs_err": err}
+           "max_abs_err": err,
+           "repeat_bit_equal": bool(torch.equal(got, again))}
     if quant:
         res["tol"] = bf16_rounding_tolerance(q, kd, vd, table, pos, **win)
-        err32 = float((got - run_plain(pools, table, q.float())).abs().max())
-        ok = err <= res["tol"] and err32 <= K2B_F32_RTOL * float(
-            vd.abs().max())
-        note = f", vs fp32 plain {err32:.3e}"
     else:
         res["tol"] = K2_TOL_FACTOR * float(vd.abs().max()) + 1e-5
-        ok, note = err <= res["tol"], ""
+    # the plain version in fp32 rounds nothing to bf16: the kernel's own
+    # function, held at K2b's fp32 tolerance
+    err32 = float((got - run_plain(pools, table, q.float())).abs().max())
+    res["max_abs_err_f32"] = err32
+    res["tol_f32"] = K2B_F32_RTOL * float(vd.abs().max())
+    ok = err <= res["tol"] and err32 <= res["tol_f32"] \
+        and res["repeat_bit_equal"]
+    note = f", vs fp32 plain {err32:.3e} (tol {res['tol_f32']:.3e})"
+    note += "; two calls " + ("bit-identical" if res["repeat_bit_equal"]
+                              else "DIFFER")
     if window > int(pos_np.max()) and not sinks:
         res["bit_equal"] = bool(torch.equal(got, run_unwindowed(pools,
                                                                 full)))
@@ -949,42 +1003,167 @@ def k2c_case(pool: str, window: int, sinks: int, gen, card: str,
     copies = [tuple(t.clone() for t in pools)
               for _ in range(copies_past_l2(per_copy, 64))]
     it = iter(range(1 << 30))
-    res["ms"] = time_ms(lambda: run_k2c(copies[next(it) % len(copies)],
-                                        table))
+
+    def kernel():
+        return run_k2c(copies[next(it) % len(copies)], table)
+
+    res["ms"] = time_ms(kernel, K2_ITERS)
+    res["graph_ms"] = graph_ms(kernel)
+    res["host_ms"] = host_ms(lambda: run_k2c(pools, table))
     res["unwindowed_ms"] = time_ms(lambda: run_unwindowed(
-        copies[next(it) % len(copies)], full))
+        copies[next(it) % len(copies)], full), K2_ITERS)
     res["plain_ms"] = time_ms(lambda: run_plain(
         copies[next(it) % len(copies)], table))
-    # yardstick: SDPA over the K/V already gathered to each row's live keys
-    # (the gather, and for a quantized pool the dequantization, not timed),
-    # in bf16, GQA heads expanded, padded to the longest row and masked
-    lmax = int(valid.sum(dim=1).max())
-    order = torch.sort((~valid).to(torch.int32), dim=1,
-                       stable=True).indices
-    idx = order[:, :lmax]
-    keep = valid.gather(1, idx)
-    safe = torch.where(table >= 0, table, 0).long()
-
-    def live(x):
-        xg = x[safe].reshape(b, mb * bs, kvh, hd).to(torch.bfloat16)
-        xg = xg.gather(1, idx[:, :, None, None].expand(b, lmax, kvh, hd))
-        return xg.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-
-    kg, vg = live(kd), live(vd)
-    qs = q.reshape(b, kvh * g, 1, hd)
-    mask = keep[:, None, None, :]
-    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, kg, vg, attn_mask=mask))
+    sdpa = sdpa_yardstick(q, kd, vd, table, valid)
+    res["library_ms"] = time_ms(sdpa, K2_ITERS)
+    res["library_graph_ms"] = graph_ms(sdpa)
     res["bytes"] = (2 * b * kvh * g * hd + 2 * tokens * kvh * vec_bytes
                     + 4 * b * mb + 4 * b + 4 * b * kvh * g * hd)
     res["flops"] = 4.0 * tokens * kvh * g * hd
     res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], res["flops"])
     print(f"[kernels] paged_attention_window {pool} window={window} "
-          f"sinks={sinks}: kernel {res['ms']:.4f} ms, without the window "
+          f"sinks={sinks}: kernel {res['ms']:.4f} ms back to back, "
+          f"{res['graph_ms']:.4f} ms graph (host {res['host_ms']:.4f} ms a "
+          f"call), without the window "
           f"({'K2b' if quant else 'K2a'}, whole rows) "
           f"{res['unwindowed_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
           f"library (SDPA, live keys gathered) {res['library_ms']:.4f} ms, "
+          f"graph {res['library_graph_ms']:.4f} ms, "
           f"bound {res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}) "
+          f"[{card}]")
+    return res
+
+
+def _gemma2_decode_inputs(gen, window: int | None = None):
+    """K2's operands at [serve-gemma2]'s decode shape (B 4 slots, KV 4
+    heads of G 2 query heads, head_dim 256, 16-token blocks, 288 a row; bf16
+    q and pool): two rows of G2_LONG prompts after a few decoded tokens
+    (4200-4500 + 16), as in the profiled tick, and two short ones. The
+    table maps each row's blocks up to pos and, under ``window``, evicts
+    those wholly outside it, as the engine does; every other entry is -1.
+    Returns (q, k_pool, v_pool, table, pos, tokens attended per row)."""
+    import numpy as np
+    import torch
+
+    b, kvh, g, hd, bs = G2_SLOTS, 4, 2, 256, G2_BLOCK
+    mb = G2_MAX_SEQ // bs
+    nb = b * mb + 1
+    rng = np.random.default_rng(SEED + 7)
+    pos = np.concatenate([rng.integers(G2_LONG[1], G2_LONG[2] + 1, 2),
+                          rng.integers(G2_SHORT[1], G2_SHORT[2] + 1, 2)])
+    pos = (pos + MAX_NEW // 2).astype(np.int32)
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    table = np.full((b, mb), -1, np.int32)
+    for i, p in enumerate(pos):
+        table[i, :p // bs + 1] = perm[i * mb:i * mb + p // bs + 1]
+        if window is not None:
+            table[i, :max((int(p) - window + 1) // bs, 0)] = -1
+    attended = pos + 1 if window is None else np.minimum(pos + 1, window)
+    dev = "cuda"
+    q = torch.randn((b, kvh, g, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kp, vp = (torch.randn((nb, bs, kvh, hd), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    return (q, kp, vp, torch.from_numpy(table).to(dev),
+            torch.from_numpy(pos).to(dev), attended)
+
+
+def k2_long_case(softcap, window, gen, card: str):
+    """K2a (``window`` None) or K2c (``window``, no sinks) at
+    [serve-gemma2]'s decode shape with two long rows
+    (``_gemma2_decode_inputs``): against the plain version at K2a's
+    tolerance and against the plain version in fp32 (which rounds nothing
+    to bf16: the kernel's own function) at K2b's fp32 tolerance, two calls
+    bit-identical, K2c under a window that does not bind (the table's whole
+    span) bit-equal to K2a. Times, over copies of the pools taken in turn
+    so that each call reads its K/V from HBM: back to back from Python
+    (``ms``), the device alone (``graph_ms``, a replayed CUDA graph; the
+    bound fraction is the bytes bound over it), the host's work a call
+    (``host_ms``), the plain version, and SDPA (``sdpa_yardstick``; no
+    softcap, which SDPA lacks)."""
+    import torch
+
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        paged_attention, paged_attention_window)
+    from repro_torch.kernels.paged_attention.ref import (attended,
+                                                         paged_attention_ref)
+
+    q, kp, vp, table, pos, tokens = _gemma2_decode_inputs(gen, window)
+    b, kvh, g, hd = q.shape
+    bs, mb = kp.shape[1], table.shape[1]
+    win = {} if window is None else {"window": window, "sinks": 0}
+
+    def kernel(k_=kp, v_=vp):
+        if window is None:
+            return paged_attention(q, k_, v_, table, pos, softcap=softcap)
+        return paged_attention_window(q, k_, v_, table, pos, **win,
+                                      softcap=softcap)
+
+    got, again = kernel(), kernel()
+    want = paged_attention_ref(q, kp, vp, table, pos, softcap=softcap, **win)
+    f32 = paged_attention_ref(q.float(), kp, vp, table, pos,
+                              softcap=softcap, **win)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    err32 = float((got - f32).abs().max())
+    del want, f32
+    tol = K2_TOL_FACTOR * float(vp.abs().max()) + 1e-5
+    tol32 = K2B_F32_RTOL * float(vp.abs().max())
+    res = {"softcap": softcap, "window": window, "max_abs_err": err,
+           "tol": tol, "max_abs_err_f32": err32, "tol_f32": tol32,
+           "repeat_bit_equal": bool(torch.equal(got, again))}
+    ok = err <= tol and err32 <= tol32 and res["repeat_bit_equal"]
+    note = ""
+    if window is not None:
+        # a window that cannot bind: K2a's chunks, so K2a's bits
+        wide = paged_attention_window(q, kp, vp, table, pos, window=mb * bs,
+                                      softcap=softcap)
+        res["unbound_bit_equal"] = bool(torch.equal(
+            wide, paged_attention(q, kp, vp, table, pos, softcap=softcap)))
+        ok = ok and res["unbound_bit_equal"]
+        note = ("; window %d bit-equal to K2a" if res["unbound_bit_equal"]
+                else "; window %d NOT bit-equal to K2a") % (mb * bs)
+    res["ok"] = ok
+    n = int(tokens.sum())                  # keys the rows attend
+    res["bytes"] = (2 * b * kvh * g * hd + 2 * 2 * n * kvh * hd
+                    + 4 * b * mb + 4 * b + 4 * b * kvh * g * hd)
+    res["flops"] = 4.0 * n * kvh * g * hd
+    res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], res["flops"])
+    copies = [(kp.clone(), vp.clone())
+              for _ in range(copies_past_l2(res["bytes"], 8))]
+    it = iter(range(1 << 30))
+
+    def rotated():
+        return kernel(*copies[next(it) % len(copies)])
+
+    res["ms"] = time_ms(rotated, K2_ITERS)
+    res["graph_ms"] = graph_ms(rotated)
+    res["host_ms"] = host_ms(kernel)
+    res["plain_ms"] = time_ms(lambda: paged_attention_ref(
+        q, *copies[next(it) % len(copies)], table, pos, softcap=softcap,
+        **win), iters=5, warmup=1)
+    del copies
+    sdpa = sdpa_yardstick(q, kp, vp, table, attended(pos, mb * bs, window),
+                          limit=8)
+    res["library_ms"] = time_ms(sdpa, K2_ITERS)
+    res["library_graph_ms"] = graph_ms(sdpa)
+    res["bound_fraction"] = res["bound_ms"] / res["graph_ms"]
+    del sdpa
+    torch.cuda.empty_cache()
+    name = "paged_attention" if window is None else \
+        f"paged_attention_window window={window}"
+    print(f"[kernels] {name} gemma2 long rows B={b} KV={kvh} G={g} hd={hd} "
+          f"bs={bs} max_blocks={mb} pos={pos.tolist()} softcap={softcap}: "
+          f"max_abs_err {err:.3e} (tol {tol:.3e}), vs fp32 plain "
+          f"{err32:.3e} (tol {tol32:.3e}), two calls "
+          f"{'bit-identical' if res['repeat_bit_equal'] else 'DIFFER'}"
+          f"{note} -> {'ok' if ok else 'FAIL'}; kernel {res['ms']:.4f} ms "
+          f"back to back, {res['graph_ms']:.4f} ms device (graph), host "
+          f"{res['host_ms']:.4f} ms a call; plain {res['plain_ms']:.4f} ms; "
+          f"library (SDPA, attended keys gathered, no softcap) "
+          f"{res['library_ms']:.4f} ms, {res['library_graph_ms']:.4f} ms "
+          f"graph; bound {res['bound_ms'] * 1e3:.2f} us "
+          f"({res['bound_by']}), {res['bound_fraction']:.3f} of it reached "
           f"[{card}]")
     return res
 
@@ -1178,6 +1357,10 @@ def phase_kernels(cfg, m_prefill: int, card: str):
                                    timed=(w, sk) == K2C_CASES[0])
            for pool in ("bf16", "fp32", "int8", "int4")
            for w, sk in K2C_CASES}
+    # [serve-gemma2]'s decode shape, two long rows: K2a with gemma2's
+    # softcap and without (SDPA's function), K2c under its 4096 window
+    k2_long = {key: k2_long_case(*key, gen, card)
+               for key in ((50.0, None), (None, None), (50.0, 4096))}
     k3 = {(m, n, dt): k3_case(m, n, dt, gen, card)
           for m, n, dt in k3_shapes(cfg)}
     for dt in ("float32", "bfloat16"):
@@ -1201,6 +1384,8 @@ def phase_kernels(cfg, m_prefill: int, card: str):
         + [r["kv_dtype"] for r in k2b.values() if not r["ok"]] \
         + [(r["shape"], r["dtype"]) for r in k3.values() if not r["ok"]] \
         + [key for key, r in k2c.items() if not r["ok"]] \
+        + [("gemma2 long rows",) + key for key, r in k2_long.items()
+           if not r["ok"]] \
         + [("int_matmul",) + key for key, r in k5.items() if not r["ok"]] \
         + [("int_matmul_packed",) + key for key, r in k6.items()
            if not r["ok"]] \
@@ -1211,11 +1396,14 @@ def phase_kernels(cfg, m_prefill: int, card: str):
           f"{len(k4)} cases; K3 bit-equal to its plain version in all "
           f"{len(k3)} cases; K2c under a window that does not bind "
           f"bit-equal to K2a/K2b in all "
-          f"{sum('bit_equal' in r for r in k2c.values())} cases; K5 and K6 "
+          f"{sum('bit_equal' in r for r in k2c.values())} cases and at "
+          f"gemma2's long rows; K2a/K2b/K2c bit-identical over two calls in "
+          f"all {len(k2) + len(k2b) + len(k2c) + len(k2_long)} cases; K5 "
+          f"and K6 "
           f"bit-equal to their plain versions in all {len(k5) + len(k6)} "
           f"cases, K6 to K5 on the unpacked codes in all {len(k6)}; K7 "
           f"within its tolerance in all {len(k7)} cases [{card}]")
-    return k1, k2, k4, k2b, k3, k2c, k5, k6, k7
+    return k1, k2, k4, k2b, k3, k2c, k5, k6, k7, k2_long
 
 
 def _to(tree, dev):
@@ -1836,6 +2024,10 @@ def phase_profile(eng, prompts, card: str, ticks: int = 5,
         if kind == "other":
             others[e.key[:60]] = others.get(e.key[:60], 0.0) + us / 1e3 / ticks
     busy = sum(by_kind.values())
+    # every pass of K2 (split and combine) is named after its wrapper
+    check(not any("paged_attention" in k for k in others),
+          f"paged-attention kernels charged to 'other': "
+          f"{[k for k in others if 'paged_attention' in k]}")
     tag = f"{eng.kv_dtype} KV, " + ("mixed" if any(
         q.packed for q in eng.qweights.values()) else "uniform int8") + (
         f", window {eng.window_spec.mask}" if eng.window_spec else "") + (
@@ -2287,9 +2479,9 @@ def phase_train_serve(cfg, state, recipe, card: str):
           f"serve launches {launches}, expected {want}")
 
 
-def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, launches,
-                 mixed_launches, train_launches, window_launches,
-                 int_launches, int_mixed_launches):
+def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, k2_long,
+                 launches, mixed_launches, train_launches, window_launches,
+                 int_launches, int_mixed_launches, g2_launches):
     """One entry per kernel. quant_matmul: one decode step's K1 work on the
     uniform path (its 155 GEMMs at M = slots, each shape times its count
     per step); quant_matmul_packed: one decode step's K4 work on the mixed
@@ -2308,7 +2500,23 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, launches,
     ``ms`` and ``library_ms`` back to back from Python, ``graph_ms`` and
     ``library_graph_ms`` the same calls' device time in a replayed graph.
     ``launches`` from each kernel's own path: serve, mixed serve, train,
-    serve-window, serve-int, serve-int-mixed."""
+    serve-window, serve-int, serve-int-mixed. K2a/K2b/K2c also give the
+    wrapper's host time a call (``host_ms``), and K2a and K2c their case at
+    [serve-gemma2]'s decode shape with two long rows (``gemma2_long_rows``:
+    K2a with softcap 50, K2c under window 4096; launches from
+    [serve-gemma2]; ``graph_ms`` the device time, ``bound_fraction`` the
+    bound over it; SDPA without the softcap)."""
+
+    def long_rows(r, n):
+        return {"launches": n, "max_abs_err": r["max_abs_err"],
+                "max_abs_err_f32": r["max_abs_err_f32"],
+                "ms": r["ms"], "graph_ms": r["graph_ms"],
+                "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "bound_fraction": r["bound_fraction"],
+                "library_ms": r["library_ms"],
+                "library_graph_ms": r["library_graph_ms"]}
+
     per_step = {(cfg.d_model, cfg.n_heads * cfg.head_dim): 2 * cfg.n_layers,
                 (cfg.d_model, cfg.n_kv_heads * cfg.head_dim):
                     2 * cfg.n_layers,
@@ -2353,9 +2561,14 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, launches,
              "src/repro/kernels/paged_attention/paged_attention.py:206",
          "launches": launches["paged_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in k2),
+         "max_abs_err_f32": max(r["max_abs_err_f32"] for r in k2),
          "ms": k2a["ms"], "plain_ms": k2a["plain_ms"],
          "bound_ms": k2a["bound_ms"], "bound_by": k2a["bound_by"],
-         "library_ms": k2a["library_ms"]},
+         "library_ms": k2a["library_ms"], "host_ms": k2a["host_ms"],
+         "graph_ms": k2a["graph_ms"],
+         "library_graph_ms": k2a["library_graph_ms"],
+         "gemma2_long_rows": long_rows(k2_long[(50.0, None)],
+                                       g2_launches["paged_attention"])},
         {"name": "quant_matmul_packed", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul/quant_matmul.py:200",
@@ -2371,18 +2584,28 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, launches,
              "src/repro/kernels/paged_attention/paged_attention.py:95",
          "launches": mixed_launches["paged_attention_quant"],
          "max_abs_err": max(r["max_abs_err"] for r in k2b.values()),
+         "max_abs_err_f32": max(r["max_abs_err_f32"]
+                                for r in k2b.values()),
          "ms": k2b4["ms"], "plain_ms": k2b4["plain_ms"],
          "bound_ms": k2b4["bound_ms"], "bound_by": k2b4["bound_by"],
-         "library_ms": k2b4["library_ms"]},
+         "library_ms": k2b4["library_ms"], "host_ms": k2b4["host_ms"],
+         "graph_ms": k2b4["graph_ms"],
+         "library_graph_ms": k2b4["library_graph_ms"]},
         {"name": "paged_attention_window", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces":
              "src/repro/kernels/paged_attention/paged_attention.py:206",
          "launches": window_launches["paged_attention_window"],
          "max_abs_err": max(r["max_abs_err"] for r in k2c.values()),
+         "max_abs_err_f32": max(r["max_abs_err_f32"]
+                                for r in k2c.values()),
          "ms": k2c_bf16["ms"], "plain_ms": k2c_bf16["plain_ms"],
          "bound_ms": k2c_bf16["bound_ms"], "bound_by": k2c_bf16["bound_by"],
-         "library_ms": k2c_bf16["library_ms"]},
+         "library_ms": k2c_bf16["library_ms"],
+         "host_ms": k2c_bf16["host_ms"], "graph_ms": k2c_bf16["graph_ms"],
+         "library_graph_ms": k2c_bf16["library_graph_ms"],
+         "gemma2_long_rows": long_rows(k2_long[(50.0, 4096)],
+                                       g2_launches["paged_attention_window"])},
         {"name": "fake_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant/fake_quant.py:69",
@@ -2441,8 +2664,8 @@ def main() -> int:
     cfg = get_config("tinyllama-1.1b")
     prompts = _prompts(cfg.vocab_size)
     m_prefill = max(_bucket(len(p)) for p in prompts)
-    k1, k2, k4, k2b, k3, k2c, k5, k6, k7 = phase_kernels(cfg, m_prefill,
-                                                         card)
+    k1, k2, k4, k2b, k3, k2c, k5, k6, k7, k2_long = phase_kernels(
+        cfg, m_prefill, card)
     phase_parity(cfg, card)
     for kv_dtype in ("int8", "int4"):
         phase_parity(cfg, card, state="mixed", kv_dtype=kv_dtype)
@@ -2485,7 +2708,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
-    eng, g2_prompts, _ = phase_serve_gemma2(card)
+    eng, g2_prompts, g2_launches = phase_serve_gemma2(card)
     _one_sync(phase_profile(eng, g2_prompts[G2_SLOTS:], card,
                             slots=G2_SLOTS), "serve-gemma2")
     del eng
@@ -2496,9 +2719,10 @@ def main() -> int:
     del state
     print(f"[done] {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps(kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7,
-                                  launches, mixed_launches, train_launches,
-                                  window_launches, int_launches[False],
-                                  int_launches[True])))
+                                  k2_long, launches, mixed_launches,
+                                  train_launches, window_launches,
+                                  int_launches[False], int_launches[True],
+                                  g2_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

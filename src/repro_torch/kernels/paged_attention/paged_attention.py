@@ -6,12 +6,15 @@ over a float pool (K2a) or a quantized one with ``k_scale``/``v_scale``
 (K2b: int8 codes or int4 nibbles plus fp16 group scales, ``quant/kv.py``),
 and, under a sliding ``window`` with ``sinks`` (DESIGN.md §17), over either
 pool (K2c: ``paged_attention_window``, ``paged_attention_quant_window``,
-each counting its own launches). The source's header says what bounds
-them and how the kernels are laid out.
+each counting its own launches). Each call launches a split pass over
+chunks of the rows' live blocks and a combine pass that merges them in
+split order (``split_plan``); it counts as one launch. The source's
+header says what bounds them and how the kernels are laid out.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -21,8 +24,35 @@ from repro_torch.kernels import _build
 
 from .ref import paged_attention_ref
 
-# shared memory the kernel stages per block: K and V of one block, as fp32
-_SMEM_LIMIT = 48 * 1024
+# cached tokens a split thread block walks (rounded down to whole blocks):
+# a gemma2 row of ~4500 tokens is ~70 chunks, several hundred thread blocks
+# a launch; a tinyllama row of <= 512 tokens at most 8
+CHUNK_TOKENS = 64
+# the kernel's limits: head elements a lane owns (head_dim is a multiple of
+# it, up to 256), blocks in a chunk, splits (the combine keeps a weight of
+# each in shared memory), a grid axis, tokens in a chunk
+_LANE_ELEMS, _MAX_CHUNK, _MAX_SPLITS, _MAX_GRID = 8, 64, 4096, 65535
+_MAX_CHUNK_TOKENS = 2048
+_HEAD_TILE = 8          # query heads a split thread block scores
+_ALIGN = {torch.int8: 8, torch.uint8: 4}
+
+
+@functools.lru_cache(maxsize=1024)
+def split_plan(block_size: int, max_blocks: int, window: int | None = None,
+               sinks: int = 0) -> tuple[int, int]:
+    """(chunk, n_splits) of a call, from integers the host holds (never
+    from ``pos``, which lives on the device): ``chunk`` blocks per split,
+    from CHUNK_TOKENS and the block size alone, so that a window changes
+    no chunk; ``n_splits`` = ceil(S / chunk), S the most live blocks a row
+    can have: the table width, or under a window min(max_blocks,
+    ceil(sinks / bs) + ceil(window / bs) + 1) (the sink blocks, then the
+    blocks a window of ``window`` tokens can touch)."""
+    chunk = max(1, min(_MAX_CHUNK, CHUNK_TOKENS // block_size))
+    live = max_blocks
+    if window is not None:
+        live = min(max_blocks, -(-sinks // block_size)
+                   + -(-window // block_size) + 1)
+    return chunk, max(1, -(-live // chunk))
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,7 +60,7 @@ def _kernel_fn(windowed: bool = False):
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_window_bf16q if windowed \
         else lib.paged_attention_bf16q
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
         + [ctypes.c_float] * 2 + [ctypes.c_int] * (2 * windowed) \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -42,7 +72,7 @@ def _quant_kernel_fn(windowed: bool = False):
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_quant_window_bf16q if windowed \
         else lib.paged_attention_quant_bf16q
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 \
         + [ctypes.c_float] * 2 + [ctypes.c_int] * (2 * windowed) \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -72,7 +102,7 @@ def _check_scales(q, k_pool, v_pool, k_scale, v_scale) -> tuple[int, int]:
         raise ValueError(f"code pools {k_pool.dtype} {tuple(k_pool.shape)} / "
                          f"{v_pool.dtype} {tuple(v_pool.shape)} do not hold "
                          f"{bits}-bit codes of head_dim {hd}")
-    if k_scale.ndim != 4 or tuple(k_scale.shape[:3]) != (nb, bs, kvh) \
+    if k_scale.ndim != 4 or k_scale.shape[:3] != (nb, bs, kvh) \
             or v_scale.shape != k_scale.shape:
         raise ValueError(f"scales {tuple(k_scale.shape)}/"
                          f"{tuple(v_scale.shape)} do not page with codes "
@@ -82,10 +112,13 @@ def _check_scales(q, k_pool, v_pool, k_scale, v_scale) -> tuple[int, int]:
                          f"{v_scale.dtype}")
     ng = k_scale.shape[-1]
     group_size = hd // ng
-    if ng * group_size != hd:
-        raise ValueError(f"{ng} scale groups do not divide head_dim {hd}")
+    if ng * group_size != hd or group_size % _LANE_ELEMS:
+        raise ValueError(f"{ng} scale groups of head_dim {hd}: the kernel "
+                         f"needs groups of a multiple of {_LANE_ELEMS} "
+                         f"elements that divide it")
+    dev = q.get_device()
     for t in (k_scale, v_scale):
-        if t.device != q.device:
+        if t.get_device() != dev:
             raise ValueError(f"operands on {t.device} and {q.device}")
         if not t.is_contiguous():
             raise ValueError("paged_attention operands must be contiguous")
@@ -99,7 +132,7 @@ def _check(q, k_pool, v_pool, block_table, pos, *, quantized: bool = False):
     b, kvh, g, hd = q.shape
     nb, bs = k_pool.shape[:2]
     last = k_pool.shape[-1] if quantized else hd
-    if tuple(k_pool.shape) != (nb, bs, kvh, last) \
+    if k_pool.shape != (nb, bs, kvh, last) \
             or v_pool.shape != k_pool.shape:
         raise ValueError(f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)}"
                          f" do not match q {tuple(q.shape)}")
@@ -113,80 +146,103 @@ def _check(q, k_pool, v_pool, block_table, pos, *, quantized: bool = False):
             or block_table.shape[0] != b:
         raise ValueError(f"block_table must be int32 (B, max_blocks), got "
                          f"{block_table.dtype} {tuple(block_table.shape)}")
-    if pos.dtype != torch.int32 or tuple(pos.shape) != (b,):
+    if pos.dtype != torch.int32 or pos.shape != (b,):
         raise ValueError(f"pos must be int32 (B,), got {pos.dtype} "
                          f"{tuple(pos.shape)}")
+    dev = q.get_device()
     for t in (k_pool, v_pool, block_table, pos):
-        if t.device != q.device:
+        if t.get_device() != dev:
             raise ValueError(f"operands on {t.device} and {q.device}")
     for t in (q, k_pool, v_pool, block_table, pos):
         if not t.is_contiguous():
             raise ValueError("paged_attention operands must be contiguous")
-    if hd > 256 or g > 32:
-        raise ValueError(f"head_dim {hd} > 256 or group {g} > 32 warps")
-    if 2 * bs * hd * 4 > _SMEM_LIMIT:
-        raise ValueError(f"block {bs} x head_dim {hd} exceeds the kernel's "
-                         f"shared-memory staging")
+    if hd % _LANE_ELEMS or not 0 < hd <= 256:
+        raise ValueError(f"head_dim {hd}: the kernel takes multiples of "
+                         f"{_LANE_ELEMS} up to 256")
+    # a lane loads 16 bytes of q and of a float pool, 8 of int8 codes and
+    # 4 of int4 nibbles
+    for t in (q, k_pool, v_pool):
+        if t.data_ptr() % _ALIGN.get(t.dtype, 16):
+            raise ValueError("paged_attention operands must be 16-byte "
+                             "aligned (int8 codes 8, int4 nibbles 4)")
+    if kvh * -(-g // _HEAD_TILE) > _MAX_GRID or kvh * g > _MAX_GRID:
+        raise ValueError(f"{kvh} KV heads x {g} query heads exceed the "
+                         f"grid")
+    # a chunk's tokens are resolved in shared memory to int32 pool tokens
+    if bs > _MAX_CHUNK_TOKENS or nb * bs >= 2 ** 31:
+        raise ValueError(f"{nb} blocks of {bs} tokens: the kernel takes "
+                         f"blocks of up to {_MAX_CHUNK_TOKENS} tokens and "
+                         f"fewer than 2**31 pool tokens")
+
+
+def _launch(wrapper, fn, q, pools, block_table, pos, bs, ints, softcap,
+            window):
+    """Allocate the output and the split workspace, launch ``fn`` (the
+    split and the combine pass) on the current stream over the ``pools``
+    pointers and the ``ints`` after the split plan, and add one to
+    ``wrapper.launches``; returns the output."""
+    b, kvh, g, hd = q.shape
+    mb = block_table.shape[1]
+    chunk, n_splits = split_plan(bs, mb, *(window or (None,)))
+    if n_splits > _MAX_SPLITS:
+        raise ValueError(f"{n_splits} splits of {chunk} blocks exceed the "
+                         f"kernel's {_MAX_SPLITS}")
+    out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=q.device)
+    if not (b and kvh and g):
+        return out
+    # each split's partial (m, l, acc[G][hd]) in fp32. Freed when this
+    # returns: the caching allocator hands it out again only to work that
+    # the stream runs after the combine pass
+    ws = torch.empty((b * kvh * n_splits * g * (hd + 2),),
+                     dtype=torch.float32, device=q.device)
+    # the launch needs q's device current and the current stream's handle:
+    # the device is switched only when it differs, and the raw handle is
+    # read as K7's wrapper reads it (no torch.cuda.Stream is built)
+    dev = q.get_device()
+    with contextlib.nullcontext() if dev == torch.cuda.current_device() \
+            else torch.cuda.device(dev):
+        rc = fn(q.data_ptr(), *pools, block_table.data_ptr(),
+                pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, kvh, g,
+                hd, bs, mb, chunk, n_splits, *ints, hd ** -0.5,
+                0.0 if softcap is None else float(softcap), *(window or ()),
+                torch._C._cuda_getCurrentRawStream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
+                           f"{rc}")
+    wrapper.launches += 1
+    return out
 
 
 def _launch_float(wrapper, q, k_pool, v_pool, block_table, pos, softcap,
                   window):
-    """Launch K2a (``window`` None) or K2c (``window`` = (w, sinks)) over a
-    float pool, adding one to ``wrapper.launches`` per launch; returns the
-    output."""
+    """K2a (``window`` None) or K2c (``window`` = (w, sinks)) over a float
+    pool."""
     _check(q, k_pool, v_pool, block_table, pos)
-    b, kvh, g, hd = q.shape
-    bs = k_pool.shape[1]
-    out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=q.device)
-    if b and kvh:
-        with torch.cuda.device(q.device):
-            rc = _kernel_fn(window is not None)(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                b, kvh, g, hd, bs, block_table.shape[1],
-                int(k_pool.dtype == torch.bfloat16), hd ** -0.5,
-                0.0 if softcap is None else float(softcap),
-                *(window or ()), torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA "
-                               f"error {rc}")
-        wrapper.launches += 1
-    return out
+    return _launch(wrapper, _kernel_fn(window is not None), q,
+                   (k_pool.data_ptr(), v_pool.data_ptr()), block_table, pos,
+                   k_pool.shape[1], (int(k_pool.dtype == torch.bfloat16),),
+                   softcap, window)
 
 
 def _launch_quant(wrapper, q, k_pool, v_pool, k_scale, v_scale,
                   block_table, pos, softcap, window):
-    """Launch K2b (``window`` None) or K2c (``window`` = (w, sinks)) over a
-    quantized pool, adding one to ``wrapper.launches`` per launch; returns
-    the output."""
+    """K2b (``window`` None) or K2c (``window`` = (w, sinks)) over a
+    quantized pool."""
     _check(q, k_pool, v_pool, block_table, pos, quantized=True)
     bits, group_size = _check_scales(q, k_pool, v_pool, k_scale, v_scale)
-    b, kvh, g, hd = q.shape
-    bs = k_pool.shape[1]
-    out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=q.device)
-    if b and kvh:
-        with torch.cuda.device(q.device):
-            rc = _quant_kernel_fn(window is not None)(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                k_scale.data_ptr(), v_scale.data_ptr(),
-                block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                b, kvh, g, hd, bs, block_table.shape[1], bits, group_size,
-                hd ** -0.5, 0.0 if softcap is None else float(softcap),
-                *(window or ()), torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA "
-                               f"error {rc}")
-        wrapper.launches += 1
-    return out
+    return _launch(wrapper, _quant_kernel_fn(window is not None), q,
+                   (k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
+                    v_scale.data_ptr()), block_table, pos, k_pool.shape[1],
+                   (bits, group_size), softcap, window)
 
 
 def _on_card(q, name: str) -> bool:
     """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
+    if q.is_cuda:
+        return True
+    if q.device.type != "cpu":
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
-    return True
+    return False
 
 
 def paged_attention(q, k_pool, v_pool, block_table, pos, *,

@@ -19,6 +19,8 @@ except ImportError:  # container without hypothesis: deterministic replay
     from _hyp_fallback import given, settings
     from _hyp_fallback import strategies as st
 
+from _port_env import (  # noqa: F401 (autouse)
+    one_torch_thread, shared_compile_cache)
 from repro.quant import kv as jkv
 from repro.quant import pack as jpack
 from repro_torch.quant import kv as tkv

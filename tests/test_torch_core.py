@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _port_env import shared_compile_cache  # noqa: F401 (autouse)
 from repro.configs import get_smoke_config as j_smoke
 from repro.core import bop as jbop
 from repro.core import calibration as jcal

@@ -25,6 +25,7 @@ order holds them anyway. The CUDA kernel itself runs only on the card
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,8 @@ import numpy as np
 import pytest
 import torch
 
+from _port_env import (  # noqa: F401 (autouse)
+    one_torch_thread, shared_compile_cache)
 from repro.configs import get_smoke_config as j_smoke
 from repro.core.sites import QuantContext as JQuantContext
 from repro.kernels.flash_attention.ops import flash_attention_op as j_fa_op
@@ -341,19 +344,23 @@ N_NEW = 4
 
 @pytest.fixture(scope="module")
 def oracle(gemma):
-    """repro's greedy runs of both prompts, without and under
-    WindowSpec(12, 1): {window: [(prompt, logit rows, tokens)]}."""
+    """repro's greedy runs of both prompts without a window (None) and
+    under WindowSpec(12, 1), each run at the first test that asks for it:
+    window -> [(prompt, logit rows, tokens)]."""
     cfg, params, jqc = gemma[:3]
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in PROMPTS]
-    out = {}
-    for w in (None, WINDOW):
-        decode, out[w] = None, []
+
+    @functools.lru_cache(maxsize=None)
+    def runs(window):
+        decode, out = None, []
         for p in prompts:
             rows, toks, decode = _repro_greedy(cfg, params, jqc, p, N_NEW,
-                                               window=w, decode=decode)
-            out[w].append((p, rows, toks))
-    return out
+                                               window=window, decode=decode)
+            out.append((p, rows, toks))
+        return out
+
+    return runs
 
 
 def test_gemma2_params_through_bridge(gemma):
@@ -383,7 +390,7 @@ def test_gemma2_prefill_and_decode_logits_match_repro(gemma, oracle, window):
     qc = QuantContext("serve", cfg=tqs["qcfg"], qweights=qw,
                       specs=specs_from_state(tqs["gates"], tqs["betas"],
                                              tqs["signed"]))
-    for prompt, rows, toks in oracle[window]:
+    for prompt, rows, toks in oracle(window):
         got = _port_rows(tcfg, tparams, qc, prompt, toks, window=window)
         for i, (w, g) in enumerate(zip(rows, got)):
             rtol = PREFILL_RTOL if i == 0 else DECODE_RTOL
@@ -400,9 +407,9 @@ def test_gemma2_engine_greedy_tokens_equal_repro(gemma, oracle, window):
     eng = ServingEngine(tcfg, tparams, slots=2, max_seq=64, block_size=BS,
                         quant_state=tqs, attention_window=spec,
                         device="cpu")
-    res = eng.generate([p for p, _, _ in oracle[window]],
+    res = eng.generate([p for p, _, _ in oracle(window)],
                        SamplingParams(max_new=N_NEW))
-    assert [r.tokens for r in res] == [t for _, _, t in oracle[window]]
+    assert [r.tokens for r in res] == [t for _, _, t in oracle(window)]
     assert eng.stats["tick_syncs"] == eng.stats["decode_ticks"]
     assert int(eng.alloc["n_free"]) == eng.num_blocks - 1
 

@@ -29,6 +29,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from _port_env import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                      flash_attention_ref,
                                                      k7_tolerance)

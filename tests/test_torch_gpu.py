@@ -327,6 +327,148 @@ def _float_pools(dtype, hd, b=5, kvh=2, bs=8, mb=6, seed=0):
     return kp, vp, torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda()
 
 
+# the split walk at gemma2's decode shape: head_dim 256, 2 query heads a
+# KV head, 16-token blocks, 288 a row, chunks of 64 tokens (split_plan).
+# Rows end on a chunk boundary (4543: 71 chunks; 63: one), one token past
+# one (4544, 64), at 0, and inside a single chunk (40); -1 past each pos
+LONG_POSITIONS = [4543, 4544, 0, 40, 63, 64]
+# (window, sinks): none (K2a/K2b); a window that binds mid-chunk and
+# mid-block with sinks covering part of a block (20 of 32 tokens); a
+# window that cannot bind (the table's span: K2a's chunks and bits)
+LONG_WINDOWS = [(None, 0), (4090, 20), (4608, 0)]
+
+
+def _long_inputs(pool, window, sinks, seed=0):
+    """q, pools (and scales), dequantized pools, table and pos at
+    LONG_POSITIONS; the table mapped up to each pos, less the blocks the
+    engine evicts under ``window``."""
+    b, kvh, grp, hd, bs, mb = len(LONG_POSITIONS), 2, 2, 256, 16, 288
+    nb = b * mb + 1
+    rng = np.random.default_rng(seed)
+    pos = np.asarray(LONG_POSITIONS, np.int32)
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    table = np.full((b, mb), -1, np.int32)
+    for i, p in enumerate(pos):
+        table[i, :p // bs + 1] = perm[i * mb:i * mb + p // bs + 1]
+    table, pos = torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda()
+    if window is not None:
+        table = _evict(table, pos, window, sinks, bs)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, kvh, grp, hd), generator=g, device="cuda").to(
+        torch.bfloat16)
+    kv = [torch.randn((nb, bs, kvh, hd), generator=g, device="cuda")
+          for _ in range(2)]
+    if pool in ("int8", "int4"):
+        spec = KVQuantSpec(bits=int(pool[-1]), group_size=32, head_dim=hd)
+        (kc, ks), (vc, vs) = (quantize_kv(x, spec) for x in kv)
+        return (q, (kc, vc), {"k_scale": ks, "v_scale": vs},
+                (dequantize_kv(kc, ks, spec), dequantize_kv(vc, vs, spec)),
+                table, pos)
+    dt = torch.bfloat16 if pool == "bf16" else torch.float32
+    pools = tuple(x.to(dt) for x in kv)
+    return q, pools, {}, tuple(x.float() for x in pools), table, pos
+
+
+@pytest.mark.parametrize("window, sinks", LONG_WINDOWS)
+@pytest.mark.parametrize("pool", ["bf16", "fp32", "int8", "int4"])
+def test_paged_attention_split_walk_on_long_rows(cuda, pool, window, sinks):
+    """K2a/K2b (``window`` None) and K2c at gemma2's decode shape against
+    the plain version, at K2a's and K2b's tolerances, and against the plain
+    version in fp32 (it rounds nothing to bf16: the kernel's own function)
+    at K2b's fp32 tolerance, every pool; two calls give the same bits and
+    count one launch each; under a window that cannot bind K2c gives K2a's
+    or K2b's bits."""
+    q, pools, scales, (kd, vd), table, pos = _long_inputs(pool, window,
+                                                          sinks)
+    quant = bool(scales)
+    plain_kernel = paged_attention_quant if quant else paged_attention
+    win = {} if window is None else {"window": window, "sinks": sinks}
+    if window is None:
+        wrapper = plain_kernel
+    else:
+        wrapper = paged_attention_quant_window if quant \
+            else paged_attention_window
+    args = (q, *pools, *scales.values(), table, pos)
+    before = wrapper.launches
+    got, again = wrapper(*args, **win), wrapper(*args, **win)
+    want = paged_attention_ref(q, *pools, table, pos, **win, **scales)
+    f32 = paged_attention_ref(q.float(), *pools, table, pos, **win,
+                              **scales)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(got, again)
+    if quant:
+        tol = bf16_rounding_tolerance(q, kd, vd, table, pos, **win)
+    else:
+        tol = K2_TOL_FACTOR * float(vd.abs().max()) + 1e-5
+    assert float((got - want).abs().max()) <= tol
+    assert float((got - f32).abs().max()) <= K2B_F32_RTOL * float(
+        vd.abs().max())
+    if window is not None and window >= table.shape[1] * kd.shape[1]:
+        unwindowed = plain_kernel(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, unwindowed)
+
+
+# (G, head_dim, block size): more query heads than one split block scores
+# (two head tiles), a head dim that leaves lanes idle (96: 12 of 16), one
+# token a block (chunks of 64 blocks), the narrowest head (8: 32 tokens a
+# warp step), query heads of 6 (a tile of 8 padded) over blocks wider than
+# a chunk (128 tokens: one block a split)
+ODD_SHAPES = [(10, 64, 8), (3, 96, 8), (2, 128, 1), (1, 8, 32),
+              (6, 256, 128)]
+
+
+@pytest.mark.parametrize("kind", ["K2a", "K2b", "K2c"])
+@pytest.mark.parametrize("shape", ODD_SHAPES,
+                         ids=[f"g{g}-hd{hd}-bs{bs}" for g, hd, bs in
+                              ODD_SHAPES])
+def test_paged_attention_split_walk_on_odd_shapes(cuda, shape, kind):
+    """K2a (bf16 pool), K2b (int8 pool) and K2c (bf16 pool, window of 70
+    tokens with 5 sinks) against the plain version, and against it in
+    fp32, at the shapes the main paths do not reach, rows up to ~300
+    tokens."""
+    g, hd, bs = shape
+    b, kvh, mb = 3, 2, -(-320 // bs)
+    nb = b * mb + 1
+    rng = np.random.default_rng(g * hd + bs)
+    pos = np.asarray([mb * bs - 1, 0, 131], np.int32)
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    table = np.full((b, mb), -1, np.int32)
+    for i, p in enumerate(pos):
+        table[i, :p // bs + 1] = perm[i * mb:i * mb + p // bs + 1]
+    table, pos = torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda()
+    win = {}
+    if kind == "K2c":
+        win = {"window": 70, "sinks": 5}
+        table = _evict(table, pos, 70, 5, bs)
+    gen = torch.Generator(device="cuda").manual_seed(g + hd + bs)
+    q = torch.randn((b, kvh, g, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kv = [torch.randn((nb, bs, kvh, hd), generator=gen, device="cuda")
+          for _ in range(2)]
+    if kind == "K2b":
+        spec = KVQuantSpec(bits=8, group_size=8, head_dim=hd)
+        (kc, ks), (vc, vs) = (quantize_kv(x, spec) for x in kv)
+        got = paged_attention_quant(q, kc, vc, ks, vs, table, pos)
+        want, f32 = (paged_attention_ref(qq, kc, vc, table, pos, k_scale=ks,
+                                         v_scale=vs) for qq in (q, q.float()))
+        vd = dequantize_kv(vc, vs, spec)
+        tol = bf16_rounding_tolerance(q, dequantize_kv(kc, ks, spec), vd,
+                                      table, pos)
+    else:
+        kp, vd = (x.to(torch.bfloat16) for x in kv)
+        fn = paged_attention_window if win else paged_attention
+        got = fn(q, kp, vd, table, pos, **win)
+        want, f32 = (paged_attention_ref(qq, kp, vd, table, pos, **win)
+                     for qq in (q, q.float()))
+        tol = K2_TOL_FACTOR * float(vd.abs().max()) + 1e-5
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= tol
+    assert float((got - f32).abs().max()) <= K2B_F32_RTOL * float(
+        vd.abs().max())
+
+
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
 def test_windowed_engine_on_card_runs_through_k2c(cuda, kv_dtype):
     """ServingEngine(attention_window=WindowSpec(12, 1)) on the card: every

@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from _port_env import (  # noqa: F401 (autouse)
+    one_torch_thread, shared_compile_cache)
 from repro.configs import get_smoke_config as j_smoke
 from repro.core import bop as jbop
 from repro.core import calibration as jcal

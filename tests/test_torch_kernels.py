@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from _port_env import (  # noqa: F401 (autouse)
+    one_torch_thread, shared_compile_cache)
 from repro.kernels.paged_attention.ops import paged_attention_op as j_pa_op
 from repro.kernels.quant_matmul.ops import quant_matmul_op as j_qm_op
 from repro.kernels.quant_matmul.ops import \

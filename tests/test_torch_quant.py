@@ -22,6 +22,8 @@ except ImportError:  # container without hypothesis: deterministic replay
     from _hyp_fallback import given, settings
     from _hyp_fallback import strategies as st
 
+from _port_env import (  # noqa: F401 (autouse)
+    one_torch_thread, shared_compile_cache)
 from repro.configs import get_smoke_config as j_smoke
 from repro.core import gates as jg
 from repro.core import quantizer as jq

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from _port_env import (  # noqa: F401 (autouse)
+    one_torch_thread, shared_compile_cache)
 from repro.configs import get_smoke_config as j_smoke
 from repro.core.sites import QuantContext as JQuantContext
 from repro.models import transformer as jtfm

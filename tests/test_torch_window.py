@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+from _port_env import (  # noqa: F401 (autouse)
+    one_torch_thread, shared_compile_cache)
 from repro.configs import get_smoke_config as j_smoke
 from repro.core.sites import QuantContext as JQuantContext
 from repro.kernels.paged_attention.ops import paged_attention_op as j_pa_op
