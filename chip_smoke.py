@@ -13,6 +13,12 @@ Phases, in order; any failure exits non-zero:
                  (int8 GEMM) and K2a (bf16-pool attention) for slice 1; K4
                  (packed 2/4-bit GEMM, also against K1 on the unpacked
                  codes) and K2b (int8/int4-pool attention) for slice 2.
+                 K1 and K4 at the decode rows (tinyllama 8, gemma2 4) and
+                 prefill rows (tinyllama 512, gemma2 4608) of the serve
+                 cells, x in bf16 and fp32: the path each took (the split-K
+                 stream or the wgmma tiles), two calls bit-identical, back
+                 to back, replayed-graph and host times, x @ w_fp32 and
+                 (for information) cuBLAS bf16.
   4. parity   -- a 2-layer full-width tinyllama-1.1b: one prefill_slot and one
                  decode_step on the CPU (plain versions) and on the card
                  (kernels), logits compared at a stated tolerance: the
@@ -85,7 +91,8 @@ stated tolerance at tinyllama's and gemma2's prefill shapes, a ragged S,
 fp32 operands, head_dim 128 and Hq == Hkv, each case naming the kernel it
 ran (bf16 at head_dim 64-256: tensor cores; fp32: FMA); the build phase
 shows the tensor-core instances' HGMMA and UTMALDG instructions (SASS, by
-cuobjdump). Every prefill on the card runs K7, so the tinyllama
+cuobjdump), and K1/K4's wgmma tiles theirs. Every prefill on the card
+runs K7, so the tinyllama
 serve cells count it too (22 a prefill, none in a tick); the training
 forwards do not (K7 has no backward), calibration does. It holds K3
 (fused gated fake-quant) bit for bit
@@ -173,18 +180,8 @@ INT_ACT_BITS = 8
 # torch._int_mm, the integer GEMMs' library yardstick, needs M > 16
 INT_MM_MIN_M = 32
 
-# K1 tolerance: the kernel reassociates an fp32 sum of up to K = 5632 terms
-# (scale * sum(x * codes) + bias * rowsum against x @ (codes*scale + bias)).
-# The classical bound is K * eps32 * (|x| @ |w|) ~ 3.4e-4 of that magnitude;
-# rounding errors of random sign grow like sqrt(K) * eps32 ~ 4.5e-6, so an
-# elementwise 1e-4 of |x| @ |w| holds with a wide margin and still catches
-# any indexing fault (which errs by O(1) of it).
-K1_RTOL = 1e-4
-# K4 tolerance against its plain version: K1's (the same fp32 sums). Against
-# K1 on the unpacked codes K4 is bit-equal by design (one tile body, same K
-# order, same explicitly rounded epilogue); the run reports whether it is,
-# and fails only beyond K1's tolerance.
-K4_RTOL = K1_RTOL
+# K1 and K4 are held to K1_RTOL (kernels/quant_matmul/ref.py) of |x| @ |w|,
+# K4 also bit for bit to K1 on the unpacked codes.
 # K2a tolerance: the plain version (like the JAX oracle) rounds the softmax
 # probabilities to bf16 before the PV product; the kernel (like the TPU
 # kernel) keeps them fp32. A bf16 rounding moves each probability by at most
@@ -381,6 +378,16 @@ def phase_build():
     tc = {fn: c for fn, c in counts.items() if "tc6kernel" in fn}
     check(len(tc) == 3 and all(min(c.values()) > 0 for c in tc.values()),
           f"K7's tensor-core instances lack HGMMA or UTMALDG: {tc}")
+    # K1/K4's prefill tiles (tile::kernel<bits 8/4/2, x bf16 or two terms>)
+    # likewise
+    tiles = {fn: c for fn, c in sass_counts("quant_matmul").items()
+             if "tile6kernel" in fn}
+    for fn, c in tiles.items():
+        print(f"[build] quant_matmul SASS {fn}: "
+              + ", ".join(f"{op} {n}" for op, n in c.items()))
+    check(len(tiles) == 6
+          and all(min(c.values()) > 0 for c in tiles.values()),
+          f"K1/K4's wgmma tiles lack HGMMA or UTMALDG: {tiles}")
 
 
 def _prompts(vocab: int, lo: int = PROMPT_LO, hi: int = PROMPT_HI):
@@ -396,48 +403,132 @@ def _bucket(plen: int) -> int:
     return min(b, MAX_SEQ)
 
 
-def k1_case(m: int, k: int, n: int, gen, card: str):
-    """K1 against its plain version at (M, K, N). Returns a result dict."""
+def qmm_case(m: int, k: int, n: int, bits: int, x_dtype: str, gen,
+             card: str):
+    """K1 (``bits`` 8) or K4 (2, 4: codes packed along K) at (M, K, N) with
+    x in ``x_dtype`` (bfloat16: the serving path; float32): the path taken
+    (``kernel_path``), the error against the plain version at K1_RTOL of
+    |x| @ |w|, two calls bit-identical, K4 bit-equal to K1 on the unpacked
+    codes; back to back from Python (``ms``), the device alone (``graph_ms``,
+    a replayed CUDA graph) and the host's time a call (``host_ms``), the
+    codes taken in turn from copies past L2 (each decode GEMM reads its
+    weight from HBM once); the plain version, ``x @ w_fp32`` (``library``:
+    the same function, x widened to fp32; back to back and as a replayed
+    graph) and, for information only,
+    cuBLAS ``x_bf16 @ w_bf16`` (``bf16_gemm``: w rounded to bf16, not the
+    same function); the bound: the bytes (x, codes, vectors, out) at HBM
+    rate or the products at the bf16 tensor-core peak (fp32 x counted
+    twice: the kernel carries it as two bf16 terms), whichever is
+    longer. Returns a result dict."""
     import torch
 
-    from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul
-    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+    from repro_torch.kernels.quant_matmul.quant_matmul import (
+        kernel_path, quant_matmul, quant_matmul_packed)
+    from repro_torch.kernels.quant_matmul.ref import (
+        K1_RTOL, quant_matmul_packed_ref, quant_matmul_ref)
+    from repro_torch.quant.pack import pack_codes
 
-    dev = "cuda"
-    x = torch.randn((m, k), generator=gen, device=dev)
-    codes = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+    dev, dt = "cuda", getattr(torch, x_dtype)
+    half = 1 << (bits - 1)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+    codes = torch.randint(-half, half, (k, n), generator=gen, device=dev,
                           dtype=torch.int8)
     scale = torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-3
     bias = (torch.rand((n,), generator=gen, device=dev) - 0.5) * 1e-3
-    rowsum = x.sum(dim=1)
-    got = quant_matmul(x, codes, scale, bias, rowsum)
-    want = quant_matmul_ref(x, codes, scale, bias)
+    rowsum = x.sum(dim=1, dtype=torch.float32)
+    if bits == 8:
+        stored = codes
+
+        def kernel(c):
+            return quant_matmul(x, c, scale, bias, rowsum)
+
+        def plain(c):
+            return quant_matmul_ref(x, c, scale, bias)
+        wrapper = quant_matmul
+    else:
+        stored = pack_codes(codes, bits)
+
+        def kernel(c):
+            return quant_matmul_packed(x, c, scale, bias, rowsum, bits=bits,
+                                       k=k)
+
+        def plain(c):
+            return quant_matmul_packed_ref(x, c, scale, bias, bits=bits, k=k)
+        wrapper = quant_matmul_packed
+    got, again = kernel(stored), kernel(stored)
+    want = plain(stored)
     w = codes.to(torch.float32) * scale + bias
-    mag = x.abs() @ w.abs()
+    xf = x.to(torch.float32)
+    mag = xf.abs() @ w.abs()
+    k1 = quant_matmul(x, codes, scale, bias, rowsum) if bits < 8 else got
     torch.cuda.synchronize()
     err = (got - want).abs()
-    ok = bool((err <= K1_RTOL * mag + 1e-6).all())
-    res = {"shape": (m, k, n), "max_abs_err": float(err.max()),
-           "max_rel_err": float((err / (mag + 1e-30)).max()), "ok": ok}
+    res = {"shape": (m, k, n), "bits": bits, "x_dtype": x_dtype,
+           "path": wrapper.path, "max_abs_err": float(err.max()),
+           "max_rel_err": float((err / (mag + 1e-30)).max()),
+           "repeatable": bool(torch.equal(got, again)),
+           "k1_bit_equal": bool(torch.equal(got, k1))}
+    check(res["path"] == kernel_path(m, n, k),
+          f"{wrapper.__name__} ran {res['path']}, not "
+          f"{kernel_path(m, n, k)}")
+    res["ok"] = bool((err <= K1_RTOL * mag + 1e-6).all()) \
+        and res["repeatable"] and res["k1_bit_equal"]
+    del got, again, want, k1, mag
 
-    cc = [codes.clone() for _ in range(copies_past_l2(codes.numel()))]
-    wc = [w.clone() for _ in range(copies_past_l2(4 * w.numel(), 64))]
+    copies = [stored] + [stored.clone() for _ in range(
+        copies_past_l2(stored.numel()) - 1)]
+    wc = [w] + [w.clone() for _ in range(copies_past_l2(4 * w.numel(), 64)
+                                          - 1)]
+    wb = w.to(torch.bfloat16)
+    wbc = [wb] + [wb.clone() for _ in range(
+        copies_past_l2(2 * wb.numel(), 64) - 1)]
+    xb = x.to(torch.bfloat16)
     it = iter(range(1 << 30))
-    res["ms"] = time_ms(lambda: quant_matmul(
-        x, cc[next(it) % len(cc)], scale, bias, rowsum))
-    res["plain_ms"] = time_ms(lambda: quant_matmul_ref(
-        x, cc[next(it) % len(cc)], scale, bias))
-    res["library_ms"] = time_ms(lambda: x @ wc[next(it) % len(wc)])
-    res["bytes"] = 4 * m * k + k * n + 8 * n + 4 * m + 4 * m * n
+    heavy = 2.0 * m * n * k > 2e11   # plain versions of ~100 ms and more
+    iters = 5 if heavy else 20
+
+    def run():
+        return kernel(copies[next(it) % len(copies)])
+    res["ms"] = time_ms(run, iters)
+    res["graph_ms"] = graph_ms(run, iters)
+    res["host_ms"] = host_ms(run, 20 if heavy else 50)
+    res["plain_ms"] = time_ms(lambda: plain(copies[next(it) % len(copies)]),
+                              iters)
+    res["library_ms"] = time_ms(lambda: xf @ wc[next(it) % len(wc)], iters)
+    res["library_graph_ms"] = graph_ms(lambda: xf @ wc[next(it) % len(wc)],
+                                       iters)
+    res["bf16_gemm_ms"] = time_ms(lambda: xb @ wbc[next(it) % len(wbc)],
+                                  iters)
+    if bits < 8:
+        cc = [codes] + [codes.clone() for _ in range(
+            copies_past_l2(codes.numel()) - 1)]
+        res["k1_graph_ms"] = graph_ms(
+            lambda: quant_matmul(x, cc[next(it) % len(cc)], scale, bias,
+                                 rowsum), iters)
+        del cc
+    res["bytes"] = x.element_size() * m * k + stored.numel() + 8 * n \
+        + 4 * m + 4 * m * n
     res["flops"] = 2.0 * m * n * k
-    res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], res["flops"])
-    print(f"[kernels] quant_matmul M={m} K={k} N={n}: max_abs_err "
-          f"{res['max_abs_err']:.3e}, max err/(|x|@|w|) "
-          f"{res['max_rel_err']:.3e} (tol {K1_RTOL:g}) -> "
-          f"{'ok' if ok else 'FAIL'}; kernel {res['ms']:.4f} ms, plain "
+    terms = 1 if x_dtype == "bfloat16" else 2
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        res["bytes"], terms * res["flops"], BF16_FLOP_S)
+    del copies, wc, wbc
+    name = "quant_matmul" if bits == 8 else f"quant_matmul_packed {bits}-bit"
+    extra = "" if bits == 8 else (
+        f"; K1 on the unpacked codes {res['k1_graph_ms']:.4f} ms graph, "
+        f"{'bit-equal' if res['k1_bit_equal'] else 'NOT bit-equal'}")
+    print(f"[kernels] {name} M={m} K={k} N={n} x {x_dtype}: path "
+          f"{res['path']}; max_abs_err {res['max_abs_err']:.3e}, max "
+          f"err/(|x|@|w|) {res['max_rel_err']:.3e} (tol {K1_RTOL:g}), two "
+          f"calls {'bit-identical' if res['repeatable'] else 'DIFFER'} -> "
+          f"{'ok' if res['ok'] else 'FAIL'}; kernel {res['ms']:.4f} ms back "
+          f"to back, {res['graph_ms']:.4f} ms graph (host "
+          f"{res['host_ms']:.4f} ms a call){extra}; plain "
           f"{res['plain_ms']:.4f} ms, library (x @ w_fp32) "
-          f"{res['library_ms']:.4f} ms, bound {res['bound_ms'] * 1e3:.2f} us "
-          f"({res['bound_by']}) [{card}]")
+          f"{res['library_ms']:.4f} ms ({res['library_graph_ms']:.4f} ms "
+          f"graph), cuBLAS x_bf16 @ w_bf16 (not the "
+          f"same function) {res['bf16_gemm_ms']:.4f} ms, bound "
+          f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}) [{card}]")
     return res
 
 
@@ -556,68 +647,6 @@ def k2_case(softcap, gen, card: str, max_pos: int):
           f"{res['plain_ms']:.4f} ms, library (SDPA) {lib}, "
           f"bound {res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}) "
           f"[{card}]")
-    return res
-
-
-def k4_case(m: int, k: int, n: int, bits: int, gen, card: str):
-    """K4 against its plain version and against K1 on the unpacked codes at
-    (M, K, N) and ``bits``. Returns a result dict."""
-    import torch
-
-    from repro_torch.kernels.quant_matmul.quant_matmul import (
-        quant_matmul, quant_matmul_packed)
-    from repro_torch.kernels.quant_matmul.ref import quant_matmul_packed_ref
-    from repro_torch.quant.pack import pack_codes
-
-    dev = "cuda"
-    half = 1 << (bits - 1)
-    x = torch.randn((m, k), generator=gen, device=dev)
-    codes = torch.randint(-half, half, (k, n), generator=gen, device=dev,
-                          dtype=torch.int8)
-    packed = pack_codes(codes, bits)
-    scale = torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-3
-    bias = (torch.rand((n,), generator=gen, device=dev) - 0.5) * 1e-3
-    rowsum = x.sum(dim=1)
-    got = quant_matmul_packed(x, packed, scale, bias, rowsum, bits=bits, k=k)
-    want = quant_matmul_packed_ref(x, packed, scale, bias, bits=bits, k=k)
-    k1 = quant_matmul(x, codes, scale, bias, rowsum)
-    w = codes.to(torch.float32) * scale + bias
-    mag = x.abs() @ w.abs()
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    k1_diff = (got - k1).abs()
-    bit_equal = bool(torch.equal(got, k1))
-    ok = bool((err <= K4_RTOL * mag + 1e-6).all()) \
-        and bool((k1_diff <= K1_RTOL * mag + 1e-6).all())
-    res = {"shape": (m, k, n), "bits": bits,
-           "max_abs_err": float(err.max()),
-           "max_rel_err": float((err / (mag + 1e-30)).max()),
-           "k1_bit_equal": bit_equal, "k1_max_abs_diff": float(k1_diff.max()),
-           "ok": ok}
-
-    pc = [packed.clone() for _ in range(copies_past_l2(packed.numel()))]
-    cc = [codes.clone() for _ in range(copies_past_l2(codes.numel()))]
-    wc = [w.clone() for _ in range(copies_past_l2(4 * w.numel(), 64))]
-    it = iter(range(1 << 30))
-    res["ms"] = time_ms(lambda: quant_matmul_packed(
-        x, pc[next(it) % len(pc)], scale, bias, rowsum, bits=bits, k=k))
-    res["k1_ms"] = time_ms(lambda: quant_matmul(
-        x, cc[next(it) % len(cc)], scale, bias, rowsum))
-    res["plain_ms"] = time_ms(lambda: quant_matmul_packed_ref(
-        x, pc[next(it) % len(pc)], scale, bias, bits=bits, k=k))
-    res["library_ms"] = time_ms(lambda: x @ wc[next(it) % len(wc)])
-    res["bytes"] = 4 * m * k + packed.numel() + 8 * n + 4 * m + 4 * m * n
-    res["flops"] = 2.0 * m * n * k
-    res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], res["flops"])
-    print(f"[kernels] quant_matmul_packed {bits}-bit M={m} K={k} N={n}: "
-          f"max_abs_err {res['max_abs_err']:.3e}, max err/(|x|@|w|) "
-          f"{res['max_rel_err']:.3e} (tol {K4_RTOL:g}); vs K1 on the "
-          f"unpacked codes {'bit-equal' if bit_equal else 'NOT bit-equal'} "
-          f"(max diff {res['k1_max_abs_diff']:.3e}) -> "
-          f"{'ok' if ok else 'FAIL'}; kernel {res['ms']:.4f} ms, K1 "
-          f"{res['k1_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
-          f"(x @ w_fp32) {res['library_ms']:.4f} ms, bound "
-          f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}) [{card}]")
     return res
 
 
@@ -1330,27 +1359,57 @@ def k7_case(case, gen, card: str):
     return res
 
 
+def k1_shapes(cfg) -> dict:
+    """(K, N) -> K1 launches per forward of the uniform int8 state: attn_q
+    and attn_o, attn_k and attn_v, mlp_gate and mlp_up (GeGLU's too),
+    mlp_down, the head (tinyllama 155, gemma2 183)."""
+    d, hd, layers = cfg.d_model, cfg.head_dim, cfg.n_layers
+    q = cfg.n_heads * hd
+    shapes = {(d, q): layers, (q, d): layers,
+              (d, cfg.n_kv_heads * hd): 2 * layers,
+              (d, cfg.d_ff): 2 * layers, (cfg.d_ff, d): layers,
+              (d, cfg.padded_vocab): 1}
+    if q == d:
+        shapes = {(d, q): 2 * layers, **{key: c for key, c in shapes.items()
+                                         if key != (q, d)}}
+    return shapes
+
+
 def phase_kernels(cfg, m_prefill: int, card: str):
     import torch
 
+    from repro_torch.configs import get_config
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    d, hd = cfg.d_model, cfg.head_dim
-    qkvo = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
-            (d, cfg.d_ff), (cfg.d_ff, d), (d, cfg.padded_vocab)]
-    k1 = {}
-    for m in (SLOTS, m_prefill):
-        for k, n in qkvo:
-            k1[(m, k, n)] = k1_case(m, k, n, gen, card)
-    k1[(3, 100, 37)] = k1_case(3, 100, 37, gen, card)
+    g2 = get_config("gemma2-2b")
+    # K1 and K4 at the decode rows (tinyllama's 8 slots, gemma2's 4) and the
+    # prefill rows (tinyllama's largest bucket, gemma2's 4608) of the serve
+    # cells, x in bf16 (their activations) and fp32; K4 at the mixed
+    # state's packed shapes and bits, and at gemma2's by the same rule;
+    # gemma2's head at 4608 rows in bf16 alone (its fp32 plain version
+    # takes ~0.1 s a call)
+    rows = ((SLOTS, cfg), (m_prefill, cfg), (G2_SLOTS, g2), (G2_MAX_SEQ, g2))
+    k1, k4 = {}, {}
+    for dt in ("bfloat16", "float32"):
+        for m, c in rows:
+            for k, n in k1_shapes(c):
+                if m == G2_MAX_SEQ and n == c.padded_vocab \
+                        and dt != "bfloat16":
+                    continue
+                k1[(m, k, n, dt)] = qmm_case(m, k, n, 8, dt, gen, card)
+            for k, n, bits in mixed_k4_shapes(c):
+                if m == G2_MAX_SEQ and n == c.padded_vocab:
+                    continue
+                k4[(m, k, n, bits, dt)] = qmm_case(m, k, n, bits, dt, gen,
+                                                   card)
+        k1[(3, 100, 37, dt)] = qmm_case(3, 100, 37, 8, dt, gen, card)
+        for bits in (2, 4):
+            k4[(3, 101, 37, bits, dt)] = qmm_case(3, 101, 37, bits, dt, gen,
+                                                  card)
+        torch.cuda.empty_cache()
     max_pos = PROMPT_HI + MAX_NEW
     k2 = [k2_case(None, gen, card, max_pos),
           k2_case(30.0, gen, card, max_pos)]
-    k4 = {}
-    for m in (SLOTS, m_prefill):
-        for k, n, bits in mixed_k4_shapes(cfg):
-            k4[(m, k, n, bits)] = k4_case(m, k, n, bits, gen, card)
-    for bits in (2, 4):
-        k4[(3, 101, 37, bits)] = k4_case(3, 101, 37, bits, gen, card)
     k2b = {kv: k2b_case(kv, gen, card, max_pos) for kv in ("int8", "int4")}
     win_pos = WIN_PROMPT_HI + MAX_NEW
     k2c = {(pool, w, sk): k2c_case(pool, w, sk, gen, card, win_pos,
@@ -1367,7 +1426,7 @@ def phase_kernels(cfg, m_prefill: int, card: str):
         k3[(3, 101, dt)] = k3_case(3, 101, dt, gen, card)
     k5 = {}
     for m in (SLOTS, m_prefill):
-        for k, n in qkvo:
+        for k, n in k1_shapes(cfg):
             k5[(m, k, n)] = k5_case(m, k, n, gen, card)
     k5[(3, 101, 37)] = k5_case(3, 101, 37, gen, card)
     k6 = {}
@@ -1378,9 +1437,10 @@ def phase_kernels(cfg, m_prefill: int, card: str):
         k6[(3, 101, 37, bits)] = k6_case(3, 101, 37, bits, gen, card)
     k7 = {case[0]: k7_case(case, gen, card) for case in K7_CASES}
     torch.cuda.empty_cache()
-    bad = [r["shape"] for r in k1.values() if not r["ok"]] \
+    bad = [(r["shape"], r["x_dtype"]) for r in k1.values() if not r["ok"]] \
         + [f"softcap={r['softcap']}" for r in k2 if not r["ok"]] \
-        + [(r["shape"], r["bits"]) for r in k4.values() if not r["ok"]] \
+        + [(r["shape"], r["bits"], r["x_dtype"]) for r in k4.values()
+           if not r["ok"]] \
         + [r["kv_dtype"] for r in k2b.values() if not r["ok"]] \
         + [(r["shape"], r["dtype"]) for r in k3.values() if not r["ok"]] \
         + [key for key, r in k2c.items() if not r["ok"]] \
@@ -1391,9 +1451,12 @@ def phase_kernels(cfg, m_prefill: int, card: str):
            if not r["ok"]] \
         + [("flash_attention", key) for key, r in k7.items() if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
-    n_eq = sum(r["k1_bit_equal"] for r in k4.values())
-    print(f"[kernels] K4 bit-equal to K1 on the unpacked codes in {n_eq} of "
-          f"{len(k4)} cases; K3 bit-equal to its plain version in all "
+    paths = sorted({(r["shape"][0], r["path"]) for r in
+                    [*k1.values(), *k4.values()]})
+    print(f"[kernels] K1/K4 within 1e-4 of |x| @ |w|, two calls "
+          f"bit-identical and K4 bit-equal to K1 on the unpacked codes in all "
+          f"{len(k1)} + {len(k4)} cases; (M, path): {paths}; K3 "
+          f"bit-equal to its plain version in all "
           f"{len(k3)} cases; K2c under a window that does not bind "
           f"bit-equal to K2a/K2b in all "
           f"{sum('bit_equal' in r for r in k2c.values())} cases and at "
@@ -2024,10 +2087,12 @@ def phase_profile(eng, prompts, card: str, ticks: int = 5,
         if kind == "other":
             others[e.key[:60]] = others.get(e.key[:60], 0.0) + us / 1e3 / ticks
     busy = sum(by_kind.values())
-    # every pass of K2 (split and combine) is named after its wrapper
-    check(not any("paged_attention" in k for k in others),
-          f"paged-attention kernels charged to 'other': "
-          f"{[k for k in others if 'paged_attention' in k]}")
+    # every pass of K2 (split and combine) and of K1/K4 (stream, combine,
+    # tile and their preparations) is named after its wrapper
+    for name in ("paged_attention", "quant_matmul"):
+        check(not any(name in k for k in others),
+              f"{name} kernels charged to 'other': "
+              f"{[k for k in others if name in k]}")
     tag = f"{eng.kv_dtype} KV, " + ("mixed" if any(
         q.packed for q in eng.qweights.values()) else "uniform int8") + (
         f", window {eng.window_spec.mask}" if eng.window_spec else "") + (
@@ -2479,13 +2544,19 @@ def phase_train_serve(cfg, state, recipe, card: str):
           f"serve launches {launches}, expected {want}")
 
 
-def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, k2_long,
-                 launches, mixed_launches, train_launches, window_launches,
-                 int_launches, int_mixed_launches, g2_launches):
+def kernels_line(cfg, m_prefill, k1, k2, k4, k2b, k3, k2c, k5, k6, k7,
+                 k2_long, launches, mixed_launches, train_launches,
+                 window_launches, int_launches, int_mixed_launches,
+                 g2_launches):
     """One entry per kernel. quant_matmul: one decode step's K1 work on the
-    uniform path (its 155 GEMMs at M = slots, each shape times its count
-    per step); quant_matmul_packed: one decode step's K4 work on the mixed
-    path (its 111 packed GEMMs); paged_attention / _quant: one launch at the
+    uniform path (its 155 GEMMs at M = slots, x bf16, each shape times its
+    count per step; ``graph_ms`` the device time, ``host_ms`` the host's
+    time a call, ``bf16_gemm_ms`` cuBLAS on bf16 weights, not the same
+    function), with ``prefill`` one GEMM of [serve-gemma2]'s prefill
+    (4608 rows, mlp_gate) and ``gemma2_launches`` from [serve-gemma2];
+    quant_matmul_packed: one decode step's K4 work on the mixed path (its
+    111 packed GEMMs), with ``prefill`` the 2-bit mlp_gate at tinyllama's
+    prefill rows; paged_attention / _quant: one launch at the
     decode shape (K2b over the mixed path's int4 pool); paged_attention_
     window: one K2c launch over a bf16 pool at window 256 + 16 sink tokens,
     positions up to 927; fake_quant: one CGMQ forward's K3 work (its 221
@@ -2506,6 +2577,7 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, k2_long,
     K2a with softcap 50, K2c under window 4096; launches from
     [serve-gemma2]; ``graph_ms`` the device time, ``bound_fraction`` the
     bound over it; SDPA without the softcap)."""
+    from repro_torch.configs import get_config
 
     def long_rows(r, n):
         return {"launches": n, "max_abs_err": r["max_abs_err"],
@@ -2517,19 +2589,43 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, k2_long,
                 "library_ms": r["library_ms"],
                 "library_graph_ms": r["library_graph_ms"]}
 
-    per_step = {(cfg.d_model, cfg.n_heads * cfg.head_dim): 2 * cfg.n_layers,
-                (cfg.d_model, cfg.n_kv_heads * cfg.head_dim):
-                    2 * cfg.n_layers,
-                (cfg.d_model, cfg.d_ff): 2 * cfg.n_layers,
-                (cfg.d_ff, cfg.d_model): cfg.n_layers,
-                (cfg.d_model, cfg.padded_vocab): 1}
-    rows = [(k1[(SLOTS, k, n)], c) for (k, n), c in per_step.items()]
+    per_step = k1_shapes(cfg)
+    rows = [(k1[(SLOTS, k, n, "bfloat16")], c)
+            for (k, n), c in per_step.items()]
     k1_bound, k1_by = bound_ms(sum(r["bytes"] * c for r, c in rows),
-                               sum(r["flops"] * c for r, c in rows))
-    rows4 = [(k4[(SLOTS, k, n, b)], c)
+                               sum(r["flops"] * c for r, c in rows),
+                               BF16_FLOP_S)
+    rows4 = [(k4[(SLOTS, k, n, b, "bfloat16")], c)
              for (k, n, b), c in mixed_k4_shapes(cfg).items()]
     k4_bound, k4_by = bound_ms(sum(r["bytes"] * c for r, c in rows4),
-                               sum(r["flops"] * c for r, c in rows4))
+                               sum(r["flops"] * c for r, c in rows4),
+                               BF16_FLOP_S)
+
+    def step(rs, wrapper_launches):
+        """A decode step's K1 or K4 work: each GEMM's times by its count,
+        the host's time a call averaged over the step's calls."""
+        calls = sum(c for _, c in rs)
+        return {"launches": wrapper_launches,
+                "max_abs_err": max(r["max_abs_err"] for r, _ in rs),
+                "ms": sum(r["ms"] * c for r, c in rs),
+                "graph_ms": sum(r["graph_ms"] * c for r, c in rs),
+                "host_ms": sum(r["host_ms"] * c for r, c in rs) / calls,
+                "plain_ms": sum(r["plain_ms"] * c for r, c in rs),
+                "library_ms": sum(r["library_ms"] * c for r, c in rs),
+                "library_graph_ms": sum(r["library_graph_ms"] * c
+                                        for r, c in rs),
+                "bf16_gemm_ms": sum(r["bf16_gemm_ms"] * c for r, c in rs)}
+
+    def prefill(r):
+        """One prefill GEMM (``x`` bf16), with its path."""
+        return {key: r[key] for key in (
+            "shape", "path", "max_abs_err", "ms", "graph_ms", "host_ms",
+            "plain_ms", "library_ms", "library_graph_ms", "bf16_gemm_ms",
+            "bound_ms", "bound_by")}
+    d, d_ff = cfg.d_model, cfg.d_ff
+    g2 = get_config("gemma2-2b")
+    k1_step = step(rows, launches["quant_matmul"])
+    k4_step = step(rows4, mixed_launches["quant_matmul_packed"])
     k2a, k2b4 = k2[0], k2b[MIXED_KV]
     k2c_bf16 = k2c[("bf16",) + K2C_CASES[0]]
     k7p = k7[K7_CASES[0][0]]
@@ -2549,12 +2645,12 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, k2_long,
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul/quant_matmul.py:126",
-         "launches": launches["quant_matmul"],
+         **k1_step,
          "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
-         "ms": sum(r["ms"] * c for r, c in rows),
-         "plain_ms": sum(r["plain_ms"] * c for r, c in rows),
          "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": sum(r["library_ms"] * c for r, c in rows)},
+         "prefill": prefill(k1[(G2_MAX_SEQ, g2.d_model, g2.d_ff,
+                                "bfloat16")]),
+         "gemma2_launches": g2_launches["quant_matmul"]},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces":
@@ -2572,12 +2668,10 @@ def kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7, k2_long,
         {"name": "quant_matmul_packed", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul/quant_matmul.py:200",
-         "launches": mixed_launches["quant_matmul_packed"],
+         **k4_step,
          "max_abs_err": max(r["max_abs_err"] for r in k4.values()),
-         "ms": sum(r["ms"] * c for r, c in rows4),
-         "plain_ms": sum(r["plain_ms"] * c for r, c in rows4),
          "bound_ms": k4_bound, "bound_by": k4_by,
-         "library_ms": sum(r["library_ms"] * c for r, c in rows4)},
+         "prefill": prefill(k4[(m_prefill, d, d_ff, 2, "bfloat16")])},
         {"name": "paged_attention_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces":
@@ -2718,8 +2812,9 @@ def main() -> int:
     phase_train_serve(cfg, state, recipe, card)
     del state
     print(f"[done] {time.perf_counter() - t_start:.1f} s [{card}]")
-    print(json.dumps(kernels_line(cfg, k1, k2, k4, k2b, k3, k2c, k5, k6, k7,
-                                  k2_long, launches, mixed_launches,
+    print(json.dumps(kernels_line(cfg, m_prefill, k1, k2, k4, k2b, k3, k2c,
+                                  k5, k6, k7, k2_long, launches,
+                                  mixed_launches,
                                   train_launches, window_launches,
                                   int_launches[False], int_launches[True],
                                   g2_launches)))

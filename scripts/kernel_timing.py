@@ -1,6 +1,7 @@
 """Time one hand-written kernel of one checkout on one card.
 
-    python3 scripts/kernel_timing.py --kernel k2|k7 [--src DIR] [--label NAME]
+    python3 scripts/kernel_timing.py --kernel k1|k2|k4|k7 [--src DIR]
+                                     [--label NAME]
 
 ``k2`` (paged decode attention): K2a, K2b over an int4 pool and K2c under
 window 256 with 16 sink tokens at tinyllama's decode shapes, and at
@@ -9,7 +10,14 @@ without, K2c under window 4096 with softcap 50; each over copies of its
 pools taken in turn, so that each call reads its K/V from HBM, with SDPA
 beside it (``chip_smoke.sdpa_yardstick``, the same rows gathered, no
 softcap). ``k7`` (whole-prompt flash attention): each of ``chip_smoke``'s
-K7 cases, warm L2.
+K7 cases, warm L2. ``k1`` (fused dequant GEMM over int8 codes): every
+GEMM shape of a decode step (tinyllama at 8 rows, gemma2 at 4) and of a
+prefill (tinyllama at 512 rows, gemma2 at 4608, its head left out), and
+``k4`` (over packed 2/4-bit codes) at the mixed state's packed shapes, by
+the entry point the serving path calls (``quant_matmul_op`` /
+``quant_matmul_packed_op``) on bf16 activations, the codes taken in turn
+from copies past L2; each decode step's sums by launch count close the
+output.
 
 The inputs are made as ``chip_smoke.py`` makes them; the wrappers called
 are those of the ``repro_torch`` found in ``--src`` (default: this
@@ -134,7 +142,60 @@ def _k7_cases(gen):
             q, k, v, **kw), None, 10)
 
 
-CASES = {"k2": _k2_cases, "k7": _k7_cases}
+def _qmm_cases(gen, packed: bool):
+    """Yields (name, call, None, iters) for each K1 (``packed`` False) or
+    K4 GEMM of chip_smoke's serve cells, and notes each decode GEMM's
+    launches per step in ``_STEP``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_matmul import ops
+    from repro_torch.quant.pack import pack_codes
+
+    dev = "cuda"
+    tiny, g2 = get_config("tinyllama-1.1b"), get_config("gemma2-2b")
+    for m, cfg, decode in ((chip_smoke.SLOTS, tiny, True),
+                           (512, tiny, False),
+                           (chip_smoke.G2_SLOTS, g2, True),
+                           (chip_smoke.G2_MAX_SEQ, g2, False)):
+        shapes = {(k, n, b): c for (k, n, b), c in
+                  chip_smoke.mixed_k4_shapes(cfg).items()} if packed else \
+            {(k, n, 8): c for (k, n), c in chip_smoke.k1_shapes(cfg).items()}
+        for (k, n, bits), count in shapes.items():
+            if not decode and n == cfg.padded_vocab and m > 512:
+                continue
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            half = 1 << (bits - 1)
+            codes = torch.randint(-half, half, (k, n), generator=gen,
+                                  device=dev, dtype=torch.int8)
+            if bits < 8:
+                codes = pack_codes(codes, bits)
+            scale = torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-3
+            bias = (torch.rand((n,), generator=gen, device=dev) - 0.5) * 1e-3
+            copies = [codes] + [codes.clone() for _ in range(
+                chip_smoke.copies_past_l2(codes.numel(), 64) - 1)]
+            turn = itertools.count()
+            if bits == 8:
+                def call(x=x, c=copies, s=scale, b=bias, t=turn):
+                    return ops.quant_matmul_op(x, c[next(t) % len(c)], s, b)
+            else:
+                def call(x=x, c=copies, s=scale, b=bias, t=turn, bits=bits,
+                         k=k):
+                    return ops.quant_matmul_packed_op(
+                        x, c[next(t) % len(c)], s, b, bits=bits, k=k)
+            name = (f"{cfg.name} M={m} K={k} N={n}"
+                    + (f" {bits}-bit" if bits < 8 else ""))
+            if decode:
+                _STEP[name] = (cfg.name, count)
+            yield name, call, None, 20 if 2.0 * m * n * k < 2e11 else 5
+
+
+# decode GEMM name -> (model, launches per step), filled by _qmm_cases
+_STEP: dict[str, tuple[str, int]] = {}
+
+CASES = {"k1": lambda gen: _qmm_cases(gen, False), "k2": _k2_cases,
+         "k4": lambda gen: _qmm_cases(gen, True), "k7": _k7_cases}
 
 
 def main() -> int:
@@ -171,9 +232,22 @@ def main() -> int:
               f"ms, host {row['host_ms']:.4f} ms a call{note} [{card}]")
         del kernel, sdpa
         torch.cuda.empty_cache()
+    steps = {}
+    for row in rows:
+        if row["case"] in _STEP:
+            model, count = _STEP[row["case"]]
+            step = steps.setdefault(model, dict.fromkeys(
+                ("ms", "graph_ms", "launches"), 0))
+            step["ms"] += count * row["ms"]
+            step["graph_ms"] += count * row["graph_ms"]
+            step["launches"] += count
+    for model, step in steps.items():
+        print(f"[timing] {args.label} {model} decode step, "
+              f"{step['launches']} launches: back to back {step['ms']:.4f} "
+              f"ms, replayed graph {step['graph_ms']:.4f} ms [{card}]")
     print(json.dumps({"card": card, "kernel": args.kernel,
                       "label": args.label, "src": str(args.src),
-                      "cases": rows}))
+                      "cases": rows, "decode_steps": steps}))
     return 0
 
 

@@ -92,24 +92,9 @@
 #include <cmath>
 #include <cstdint>
 
-namespace {
+#include "hopper.cuh"
 
-// Opts `fn` in to `smem` bytes of dynamic shared memory, once per device:
-// the attribute belongs to the function in the device's context, so every
-// launch after the first skips the runtime call. `done` holds one bit per
-// device (the instance's own static); devices past 63 always call.
-template <typename F>
-cudaError_t opt_in_smem(F fn, int smem, std::atomic<std::uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const std::uint64_t bit = dev < 64 ? std::uint64_t{1} << dev : 0;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
+namespace {
 
 constexpr int BQ = 64;    // queries per thread block
 constexpr int BK = 32;    // keys per staged tile
@@ -391,42 +376,6 @@ struct Params {
   float cap_log2e;  // cap log2(e); 0: no softcap
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Returns once the phase of parity `phase` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int phase) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(phase)
-        : "memory");
-  }
-}
-
 // One TMA box of the 4-D map (D, H, S, B) at (d, h, s, b) into shared
 // memory; completion counted in bytes on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -438,35 +387,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(h), "r"(s), "r"(b),
       "r"(bar)
       : "memory");
-}
-
-// wgmma matrix descriptor of a 128-byte-swizzled tile: start address, the
-// leading byte offset (K-major: unused; MN-major: from one 64-column box to
-// the next), the stride byte offset (1024: the next 8 rows of 128 bytes),
-// mode B128.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo = 16) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// Pins a register that an asynchronous wgmma reads or writes, so the
-// compiler neither reads it early nor reuses it before the wait.
-__device__ __forceinline__ void pin(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void pin(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
 }
 
 // The accumulator operands of one wgmma, written out: inline PTX takes no
@@ -815,31 +735,6 @@ __global__ void __launch_bounds__(NT, 1)
                                     o[j][4 * c + 3] * inv1);
       }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The 4-D map (D, H, S, B) of one bf16 operand, strides in elements; boxes

@@ -5,54 +5,96 @@
 //     out[m, n] = scale[n] * (x @ codes)[m, n] + bias[n] * rowsum[m]
 //
 // which equals x @ (codes * scale + bias) in exact arithmetic: the weight is
-// never widened to float in device memory. K1 reads int8 codes (K, N); K4
-// reads 2- or 4-bit codes packed along K into uint8 (ceil(K/per), N), byte i
-// of a column holding codes i*per + j in bits [j*b, (j+1)*b), biased by
-// 2^(b-1) (src/repro_torch/quant/pack.py).
+// never widened to float in device memory. x is (M, K) bf16 (the serving
+// path) or fp32. K1 reads int8 codes (K, N); K4 reads 2- or 4-bit codes
+// packed along K into uint8 (ceil(K/per), N), byte i of a column holding
+// codes i*per + j in bits [j*b, (j+1)*b), biased by 2^(b-1)
+// (src/repro_torch/quant/pack.py).
 //
 // Replaces: src/repro/kernels/quant_matmul/quant_matmul.py:
 // quant_matmul_pallas (kernel body _kernel) and quant_matmul_packed_pallas
 // (_packed_kernel, unpacking through layout.py:unpack_tile). The TPU kernels
 // walk a sequential K grid axis and accumulate into the revisited fp32
-// output tile, applying the affine epilogue on the last K step. Here one
-// thread block owns one BM x BN output tile and loops over K itself; the
-// epilogue runs in registers before the only store.
+// output tile, applying the affine epilogue on the last K step. Here two
+// paths, chosen by the wrapper from (M, N, K) alone and identical for K1
+// and K4 (kernels/quant_matmul/quant_matmul.py: kernel_path, split_plan):
 //
-// What bounds them on an H100: at decode (M = serving slots, 8) the work is
-// a stream of weight-code bytes with 2 FLOPs per code per row, far below the
-// card's ~20 FLOP/byte fp32 ridge: they are bound by the bytes of `codes`
-// (K*N, K*N/2 or K*N/4 of them). At prefill (M = the padded prompt, up to
-// 512) they are bound by fp32 FMAs.
-// What the design does about it:
-//   * codes are read as bytes (a quarter of fp32's, or 1/8 and 1/16 packed)
-//     and widened to float only in shared memory, once per tile. The packed
-//     loader writes the unpacked, centered code
-//     ((byte >> (j*b)) & mask) - 2^(b-1) into the same fp32 tile K1 fills,
-//     and both run one tile body (gemm_tile) with the same K order and the
-//     same explicitly rounded epilogue, so K4 on pack(c) equals K1 on c bit
+// stream:: (decode, M <= 8) bound by the bytes of `codes` (K*N, K*N/2 or
+//   K*N/4): 2 FLOPs per code per row, below the card's fp32 ridge.
+//   * a (N / 128, splits) grid, one wave of ~2 blocks an SM: each block
+//     of 128 threads streams a chunk of K rows of 128 columns; the chunk is
+//     a whole number of groups of 4 K rows (one packed row at 2 bits, two
+//     at 4) and the split plan comes from the host, from (N, K) alone, so
+//     it is the same at every bits;
+//   * thread (slice, column group) owns 16 columns and K groups slice,
+//     slice + 16, ... of the chunk in that order: 16-byte asynchronous
+//     copies (cp.async), a row of 16 int8 codes or 16 columns of `per`
+//     rows of packed bytes, into the thread's own ring of 4 groups in
+//     shared memory: 3 groups in flight while one is summed, the first
+//     issued before x is staged (no barrier: each thread reads only what
+//     it copied);
+//   * each code is widened once in registers, exactly: the (biased) byte
+//     goes into the low byte of the float 2^23 by one byte permute, and one
+//     subtraction takes off 2^23 + 128 (int8) or 2^23 + 2^(b-1) (packed
+//     field ((byte >> j*b) & mask)). K1 and K4 thus feed the same floats in
+//     the same K order into the same FMAs: K4 on pack(c) is K1 on c, bit
 //     for bit;
-//   * x and codes tiles are staged in shared memory and reused by every
-//     thread of the block; each thread keeps a TM x TN fp32 register tile;
-//   * two tile shapes: M <= 8 takes an 8-row tile (one output per thread,
-//     no idle rows at decode), larger M takes 64 x 64 tiles with 4 x 4
-//     register tiles. Both K tiles (128 and 16) are whole packed rows at 2
-//     and 4 bits. Split-K, wider loads, cp.async/TMA pipelining and tensor
-//     cores are left for a later change; at M = 8 a block still reads its
-//     codes tile with plain byte loads and few bytes in flight, and K4
-//     reads each packed byte once per code it holds (the repeats hit L1).
-//   * ragged M/N/K edges are zero-filled on load (a ragged K tail would
-//     otherwise add garbage to real sums; for K4 this also zeroes the x
-//     columns that meet pack padding, and no packed row >= ceil(K/per) is
-//     read) and masked on store.
+//   * x (bf16 or fp32) is staged once a chunk in shared memory as fp32,
+//     K-major with M rows side by side, read as float4 broadcasts (the
+//     plan keeps a chunk within 4096 K rows);
+//   * the 16 slices' sums are reduced in a fixed order (two butterfly
+//     shuffles, then the four warps in turn); one split writes the
+//     explicitly rounded epilogue fmaf(acc, scale, rowsum * bias) directly,
+//     more write fp32 partials to a (splits, M, N) workspace that a second
+//     launch (combine) adds in a fixed order (8 lanes of every 8th split,
+//     then a pairwise tree) before the same epilogue. No atomics: two
+//     calls give the same bits.
+//
+// tile:: (prefill, M > 8) bound by operations: bf16 tensor cores through
+//   wgmma (m64n128k16, fp32 accumulators). wgmma has no int8 x bf16 form,
+//   so the codes are widened to bf16 (exact for |code| <= 128) on their way
+//   into shared memory:
+//   * 384 threads a 128 x 128 output tile: two consumer warpgroups of 64
+//     rows, one producer warpgroup; K steps of 64;
+//   * the producer's first thread issues every TMA load: x tiles (bf16,
+//     128-byte swizzle, K-major A) into a ring of 4 stages (3 with two x
+//     terms) and the raw code tiles (64 x 128 int8, or 64/per packed rows)
+//     into a ring of 4 raw stages, prefetched 3 K steps ahead;
+//   * all 128 producer threads then unpack/widen a raw tile into bf16 and
+//     store it in the MN-major, 128-byte-swizzled layout wgmma's B reads
+//     (two 64-column boxes, as K7's V), zeroing codes past K so that K4's
+//     pack padding enters as K1's zeros; they fence the writes to the async
+//     proxy and arrive on the stage's full barrier beside the TMA bytes;
+//   * consumers run 4 (or 8) wgmma a stage, keep one group in flight and
+//     release the previous stage; K4 and K1 feed identical bf16 tiles into
+//     the same instructions: bit-equal;
+//   * fp32 x (the tests' and chip_smoke's random cases) goes in as two bf16
+//     terms, hi = bf16(x) and lo = bf16(x - hi), both through the same tile
+//     into the same accumulator: x is carried to 2^-18 |x| (the hi/lo
+//     split K7 applies to its P); bf16 x is exact as one term;
+//   * TMA needs 16-byte aligned rows: fp32 x, or bf16 x whose row is not a
+//     multiple of 8 elements, is first written by prep_x as bf16 terms with
+//     rows padded to a multiple of 8; codes whose row is not a multiple of
+//     16 bytes are first copied by pad_codes into padded rows; both into
+//     the wrapper's workspace, in the same call, and zeros pad them;
+//   * ragged M/N/K edges: TMA zero-fills, the epilogue masks its stores; no
+//     packed row >= ceil(K/per) is read (the tensor map ends there).
 
-#include <cstdint>
+#include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
 // Code (gk, gn) as an int: an int8 code (BITS = 8), or the centered
-// BITS-bit field of a packed byte (BITS = 2, 4). K4's and K6's unpack
-// loader.
+// BITS-bit field of a packed byte (BITS = 2, 4). K6's unpack loader.
 template <int BITS>
 __device__ __forceinline__ int load_code_int(const void* codes, int gk,
                                              int gn, int N) {
@@ -67,144 +109,798 @@ __device__ __forceinline__ int load_code_int(const void* codes, int gk,
   }
 }
 
-// The same code as a float (exact: |code| <= 128).
-template <int BITS>
-__device__ __forceinline__ float load_code(const void* codes, int gk, int gn,
-                                           int N) {
-  return static_cast<float>(load_code_int<BITS>(codes, gk, gn, N));
-}
-
-// One BM x BN output tile of out = scale * (x @ codes) + bias * rowsum.
-template <int BITS, int BM, int BN, int BK, int TM, int TN>
-__device__ __forceinline__ void gemm_tile(const float* __restrict__ x,
-                                          const void* __restrict__ codes,
-                                          const float* __restrict__ scale,
-                                          const float* __restrict__ bias,
-                                          const float* __restrict__ rowsum,
-                                          float* __restrict__ out, int M,
-                                          int N, int K) {
-  constexpr int RT = BM / TM;  // thread rows: thread (ty, tx) owns rows
-  constexpr int CT = BN / TN;  // ty + i*RT and columns tx + j*CT
-  constexpr int NT = RT * CT;
-  __shared__ float xs[BK][BM + 1];
-  __shared__ float cs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int ty = tid / CT;
-  const int tx = tid % CT;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += NT) {
-      const int r = i / BK, c = i % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      xs[c][r] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.f;
-    }
-    for (int i = tid; i < BK * BN; i += NT) {
-      const int r = i / BN, c = i % BN;
-      const int gk = k0 + r, gn = n0 + c;
-      cs[r][c] = (gk < K && gn < N) ? load_code<BITS>(codes, gk, gn, N) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + i * RT];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = cs[kk][tx + j * CT];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + i * RT;
-    if (m >= M) continue;
-    const float rs = rowsum[m];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * CT;
-      // rounded explicitly, so no instantiation contracts it differently
-      if (n < N)
-        out[(size_t)m * N + n] = fmaf(acc[i][j], scale[n],
-                                      __fmul_rn(rs, bias[n]));
-    }
-  }
-}
-
-template <int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-quant_matmul_kernel(const float* __restrict__ x,
-                    const int8_t* __restrict__ codes,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ rowsum,
-                    float* __restrict__ out, int M, int N, int K) {
-  gemm_tile<8, BM, BN, BK, TM, TN>(x, codes, scale, bias, rowsum, out, M, N,
-                                   K);
-}
-
-template <int BITS, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-quant_matmul_packed_kernel(const float* __restrict__ x,
-                           const uint8_t* __restrict__ packed,
-                           const float* __restrict__ scale,
-                           const float* __restrict__ bias,
-                           const float* __restrict__ rowsum,
-                           float* __restrict__ out, int M, int N, int K) {
-  static_assert(BK % (8 / BITS) == 0, "K tile must be whole packed rows");
-  gemm_tile<BITS, BM, BN, BK, TM, TN>(x, packed, scale, bias, rowsum, out, M,
-                                      N, K);
-}
-
-// The tile shapes of both kernels: an 8-row tile at decode, 64 x 64 above.
+// M at or below which K5/K6 take their 8-row tile.
 constexpr int kSmallM = 8;
 
 dim3 grid_of(int M, int N, int bm, int bn) {
   return dim3((N + bn - 1) / bn, (M + bm - 1) / bm);
 }
 
-void launch_i8(const float* x, const int8_t* codes, const float* scale,
-               const float* bias, const float* rowsum, float* out, int M,
-               int N, int K, cudaStream_t stream) {
-  if (M <= kSmallM) {
-    const dim3 grid = grid_of(M, N, 8, 32);
-    quant_matmul_kernel<8, 32, 128, 1, 1><<<grid, 8 * 32, 0, stream>>>(
-        x, codes, scale, bias, rowsum, out, M, N, K);
-  } else {
-    const dim3 grid = grid_of(M, N, 64, 64);
-    quant_matmul_kernel<64, 64, 16, 4, 4><<<grid, 16 * 16, 0, stream>>>(
-        x, codes, scale, bias, rowsum, out, M, N, K);
-  }
+// Codes of byte j of `w` (in the low byte of 2^23) and the offset that
+// leaves the code: 2^23 + 128 for int8 codes whose sign bit was flipped,
+// 2^23 + 2^(b-1) for b-bit fields. Exact.
+__device__ __forceinline__ float magic(uint32_t w, int j) {
+  return __int_as_float(__byte_perm(w, 0x4B000000u, 0x7540u | j));
 }
 
 template <int BITS>
-void launch_packed(const float* x, const uint8_t* packed, const float* scale,
-                   const float* bias, const float* rowsum, float* out, int M,
-                   int N, int K, cudaStream_t stream) {
-  if (M <= kSmallM) {
-    const dim3 grid = grid_of(M, N, 8, 32);
-    quant_matmul_packed_kernel<BITS, 8, 32, 128, 1, 1>
-        <<<grid, 8 * 32, 0, stream>>>(
-            x, packed, scale, bias, rowsum, out, M, N, K);
+__device__ __forceinline__ float code_offset() {
+  return 8388608.f + static_cast<float>(1 << (BITS - 1));
+}
+
+// The biased codes of K row `f` (0 <= f < 8/BITS) of a 4-byte word of codes:
+// byte j of the result holds the code of column j plus the offset's bias.
+template <int BITS>
+__device__ __forceinline__ uint32_t fields(uint32_t w, int f) {
+  if constexpr (BITS == 8) {
+    return w ^ 0x80808080u;
   } else {
-    const dim3 grid = grid_of(M, N, 64, 64);
-    quant_matmul_packed_kernel<BITS, 64, 64, 16, 4, 4>
-        <<<grid, 16 * 16, 0, stream>>>(
-            x, packed, scale, bias, rowsum, out, M, N, K);
+    constexpr uint32_t MASK = ((1u << BITS) - 1) * 0x01010101u;
+    return (w >> (f * BITS)) & MASK;
   }
+}
+
+// Every kernel K1 and K4 launch is a template over one of these tags, so
+// that its name carries its wrapper's (a profile charges it to K1 or K4).
+struct quant_matmul_kernel;
+struct quant_matmul_packed_kernel;
+template <int BITS>
+using Tag = std::conditional_t<BITS == 8, quant_matmul_kernel,
+                               quant_matmul_packed_kernel>;
+
+// ---------------------------------------------------------------------------
+// stream: the decode path
+// ---------------------------------------------------------------------------
+namespace stream {
+
+constexpr int CG = 8;          // column groups of a block
+constexpr int COLS = 16;       // columns a thread owns: one 16-byte row load
+constexpr int BN = CG * COLS;  // 128 columns a block
+constexpr int KS = 16;         // K slices of a block
+constexpr int NT = CG * KS;    // 128 threads
+constexpr int GROUP = 4;       // K rows of a group: one packed row at 2 bits
+constexpr int DEPTH = 4;       // groups of codes a thread has in flight + 1
+constexpr int MAX_CHUNK_GROUPS = 1024;  // x of a chunk fits shared memory
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// 16 columns of one stored row of codes from column `col`, byte by byte up
+// to N: rows that are not 16-byte aligned.
+__device__ __forceinline__ uint4 load_row_bytes(
+    const uint8_t* __restrict__ codes, int row, int N, int col) {
+  const uint8_t* p = codes + (size_t)row * N + col;
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < COLS; ++j)
+    if (col + j < N) w[j / 4] |= static_cast<uint32_t>(p[j]) << (8 * (j % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// x[m][k0 .. k0 + 7] as fp32, zeros past K or for a row past M (`live`
+// false); `wide`: one 16-byte load (bf16) or two (fp32), the rows being
+// aligned for it.
+__device__ __forceinline__ void load_x8(float (&v)[8], const void* x,
+                                        int x_bf16, bool live, int m, int k0,
+                                        int K, bool wide) {
+  const size_t at = (size_t)m * K + k0;
+  if (live && wide && k0 + 8 <= K) {
+    if (x_bf16) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+          static_cast<const __nv_bfloat16*>(x) + at));
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[2 * e] = __uint_as_float(w[e] << 16);
+        v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+      }
+    } else {
+      const float4* p =
+          reinterpret_cast<const float4*>(static_cast<const float*>(x) + at);
+      const float4 a = __ldg(p), b = __ldg(p + 1);
+      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+      v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const bool in = live && k0 + e < K;
+    v[e] = !in ? 0.f
+         : x_bf16 ? __bfloat162float(
+                        static_cast<const __nv_bfloat16*>(x)[at + e])
+                  : static_cast<const float*>(x)[at + e];
+  }
+}
+
+// x of K row r of a staged group, M rows side by side.
+template <int MR>
+__device__ __forceinline__ void load_x(float (&xv)[MR], const float* p) {
+  if constexpr (MR % 4 == 0) {
+#pragma unroll
+    for (int m = 0; m < MR; m += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + m);
+      xv[m] = v.x;
+      xv[m + 1] = v.y;
+      xv[m + 2] = v.z;
+      xv[m + 3] = v.w;
+    }
+  } else if constexpr (MR == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    xv[0] = v.x;
+    xv[1] = v.y;
+  } else {
+    xv[0] = p[0];
+  }
+}
+
+// acc[m][c] += x[m][k] * code[k][c] over the 4 K rows of one group, in K
+// order; `raw` holds the group's 16-byte row loads (4 int8 rows, 2 rows of
+// 4-bit bytes, or 1 row of 2-bit bytes); xg the group's staged x.
+template <int MR, int BITS>
+__device__ __forceinline__ void accumulate(float (&acc)[MR][COLS],
+                                           const uint4 (&raw)[GROUP * BITS /
+                                                              8],
+                                           const float* xg) {
+  constexpr int PER = 8 / BITS;
+  const float off = code_offset<BITS>();
+#pragma unroll
+  for (int r = 0; r < GROUP; ++r) {
+    float xv[MR];
+    load_x<MR>(xv, xg + r * MR);
+    const uint4 v = raw[r / PER];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t f = fields<BITS>(w[q], r % PER);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float c = __fsub_rn(magic(f, j), off);
+#pragma unroll
+        for (int m = 0; m < MR; ++m)
+          acc[m][4 * q + j] = fmaf(xv[m], c, acc[m][4 * q + j]);
+      }
+    }
+  }
+}
+
+// One (column tile, split) of the stream: see the header.
+// Shared memory of a stream block: each thread's ring of DEPTH groups of
+// codes (after the walk, the warps' sums), then x for the whole chunk.
+template <int MR, int BITS>
+struct StreamSmem {
+  static constexpr int L = GROUP * BITS / 8;   // 16-byte loads a group
+  static constexpr int GS = GROUP * MR + 4;    // floats a staged group,
+                                               // padded so that 4
+                                               // neighbouring groups' float4
+                                               // reads fall in distinct banks
+  static constexpr int RING = DEPTH * L * NT;  // 16-byte slots
+  static constexpr int RED = NT / 32 * MR * BN / 4;
+  static constexpr int X_OFF = 16 * (RING > RED ? RING : RED);
+  static int bytes(int chunk_groups) {
+    return X_OFF + chunk_groups * GS * 4;
+  }
+};
+
+template <class TAG, int MR, int BITS>
+__global__ void __launch_bounds__(NT)
+    kernel(const void* __restrict__ x, int x_bf16,
+           const uint8_t* __restrict__ codes, const float* __restrict__ scale,
+           const float* __restrict__ bias, const float* __restrict__ rowsum,
+           float* __restrict__ out, float* __restrict__ ws, int M, int N,
+           int K, int chunk_groups, int vec, int x_vec) {
+  using S = StreamSmem<MR, BITS>;
+  constexpr int PER = 8 / BITS;
+  constexpr int L = S::L, GS = S::GS;
+  extern __shared__ uint4 smem[];
+  uint4* const ring = smem;
+  float* const xs = reinterpret_cast<float*>(
+      reinterpret_cast<uint8_t*>(smem) + S::X_OFF);
+
+  const int tid = threadIdx.x;
+  const int cg = tid % CG, slice = tid / CG;
+  const int n0 = blockIdx.x * BN, col = n0 + cg * COLS;
+  const int groups = (K + GROUP - 1) / GROUP;
+  const int g_begin = blockIdx.y * chunk_groups;
+  const int g_end = min(groups, g_begin + chunk_groups);
+  const int rows = BITS == 8 ? K : (K + PER - 1) / PER;  // stored rows
+
+  float acc[MR][COLS];
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) acc[m][c] = 0.f;
+
+  // group g's rows into ring stage `st` (slot (st L + l) NT + tid): async
+  // 16-byte copies, zeros past the split, K or N; unaligned rows byte by
+  // byte. One commit group a call, empty or not
+  auto issue = [&](int g, int st) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int row = g * L + l;
+      const bool ok = g < g_end && row < rows && col < N;
+      uint4* slot = &ring[(st * L + l) * NT + tid];
+      if (vec)
+        cp_async16(smem_u32(slot), ok ? codes + (size_t)row * N + col : codes,
+                   ok ? 16 : 0);
+      else
+        *slot = ok ? load_row_bytes(codes, row, N, col)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+    cp_async_commit();
+  };
+  // the first DEPTH - 1 groups' codes are in flight while x is staged,
+  // once, for the whole chunk
+#pragma unroll
+  for (int d = 0; d < DEPTH - 1; ++d) issue(g_begin + slice + d * KS, d);
+  // x in pieces of 8 K rows, all MR rows of a piece loaded before any is
+  // stored (16-byte loads where the rows allow)
+  const int nrow = (g_end - g_begin) * GROUP;
+  const bool wide = x_vec && (g_begin * GROUP) % 8 == 0;
+  for (int kk0 = 8 * tid; kk0 < nrow; kk0 += 8 * NT) {
+    const int k0 = g_begin * GROUP + kk0;
+    float v[MR][8];
+#pragma unroll
+    for (int m = 0; m < MR; ++m) load_x8(v[m], x, x_bf16, m < M, m, k0, K,
+                                          wide);
+#pragma unroll
+    for (int m = 0; m < MR; ++m)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int kk = kk0 + e;
+        if (kk < nrow) xs[(kk / GROUP) * GS + (kk % GROUP) * MR + m] = v[m][e];
+      }
+  }
+  __syncthreads();
+  // step j: group g_begin + slice + 16 j, while the next DEPTH - 1 steps'
+  // groups are in flight
+  const int J = (g_end - g_begin + KS - 1) / KS;
+  for (int j = 0; j < J; ++j) {
+    const int g = g_begin + slice + j * KS;
+    issue(g + (DEPTH - 1) * KS, (j + DEPTH - 1) % DEPTH);
+    cp_async_wait<DEPTH - 1>();  // step j's group has landed
+    if (g < g_end) {
+      uint4 raw[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l)
+        raw[l] = ring[((j % DEPTH) * L + l) * NT + tid];
+      accumulate<MR, BITS>(acc, raw, &xs[(g - g_begin) * GS]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every ring is drained: it holds the sums next
+  float(*red)[MR][BN] = reinterpret_cast<float(*)[MR][BN]>(ring);
+
+  // the 16 slices' sums: slices 4w .. 4w+3 sit in lanes 8 apart of warp w
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      float v = acc[m][c];
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 8));
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 16));
+      acc[m][c] = v;
+    }
+  const int warp = tid / 32, lane = tid % 32;
+  if (lane < CG) {
+#pragma unroll
+    for (int m = 0; m < MR; ++m)
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) red[warp][m][lane * COLS + c] = acc[m][c];
+  }
+  __syncthreads();
+  const bool direct = gridDim.y == 1;
+  for (int i = tid; i < MR * BN; i += NT) {
+    const int m = i / BN, c = i % BN, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    float v = red[0][m][c];
+#pragma unroll
+    for (int w = 1; w < NT / 32; ++w) v = __fadd_rn(v, red[w][m][c]);
+    if (direct)
+      out[(size_t)m * N + n] = fmaf(v, scale[n], __fmul_rn(rowsum[m], bias[n]));
+    else
+      ws[((size_t)blockIdx.y * M + m) * N + n] = v;
+  }
+}
+
+// out = the splits' partials summed in a fixed order, then the epilogue:
+// a block takes 32 outputs (threadIdx.x) and 8 split lanes (threadIdx.y);
+// lane y adds splits y, y + 8, ... in turn, and the 8 lanes' sums are
+// added as ((0 + 1) + (2 + 3)) + ((4 + 5) + (6 + 7)).
+constexpr int CX = 32, CY = 8;
+template <class TAG>
+__global__ void __launch_bounds__(CX * CY)
+    combine(const float* __restrict__ ws, const float* __restrict__ scale,
+            const float* __restrict__ bias, const float* __restrict__ rowsum,
+            float* __restrict__ out, int M, int N, int splits) {
+  __shared__ float part[CY][CX];
+  const size_t mn = (size_t)M * N;
+  const size_t i = (size_t)blockIdx.x * CX + threadIdx.x;
+  const int y = threadIdx.y;
+  float v = 0.f;
+  if (i < mn) {
+#pragma unroll 4
+    for (int s = y; s < splits; s += CY) v = __fadd_rn(v, ws[s * mn + i]);
+  }
+  part[y][threadIdx.x] = v;
+  __syncthreads();
+  if (y == 0 && i < mn) {
+    const float (*p)[CX] = part;
+    const int x = threadIdx.x;
+    const float lo = __fadd_rn(__fadd_rn(p[0][x], p[1][x]),
+                               __fadd_rn(p[2][x], p[3][x]));
+    const float hi = __fadd_rn(__fadd_rn(p[4][x], p[5][x]),
+                               __fadd_rn(p[6][x], p[7][x]));
+    const int m = static_cast<int>(i / N), n = static_cast<int>(i % N);
+    out[i] = fmaf(__fadd_rn(lo, hi), scale[n], __fmul_rn(rowsum[m], bias[n]));
+  }
+}
+
+// One stream launch at MR rows; the dynamic shared memory opt-in (to the
+// most a block can use, once per device) lets a chunk's x take up to
+// MAX_CHUNK_GROUPS groups.
+template <int MR, int BITS>
+cudaError_t launch_mr(dim3 grid, const void* x, int x_bf16,
+                      const uint8_t* codes, const float* scale,
+                      const float* bias, const float* rowsum, float* out,
+                      float* ws, int M, int N, int K, int chunk_groups,
+                      int vec, cudaStream_t stream) {
+  // x's rows allow 16-byte loads of 8 elements from any multiple of 8
+  const int x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    K % (x_bf16 ? 8 : 4) == 0;
+  auto fn = kernel<Tag<BITS>, MR, BITS>;
+  static std::atomic<std::uint64_t> opted{0};
+  const cudaError_t err = opt_in_smem(fn, 232448, opted);
+  if (err != cudaSuccess) return err;
+  fn<<<grid, NT, StreamSmem<MR, BITS>::bytes(chunk_groups), stream>>>(
+      x, x_bf16, codes, scale, bias, rowsum, out, ws, M, N, K, chunk_groups,
+      vec, x_vec);
+  return cudaGetLastError();
+}
+
+template <int BITS>
+int launch(const void* x, int x_bf16, const uint8_t* codes,
+           const float* scale, const float* bias, const float* rowsum,
+           float* out, float* ws, int M, int N, int K, int splits, int chunk,
+           cudaStream_t stream) {
+  if (chunk <= 0 || chunk % GROUP || chunk / GROUP > MAX_CHUNK_GROUPS ||
+      splits < 1 || splits > 65535 || (long long)splits * chunk < K ||
+      (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = N % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+  const dim3 grid((N + BN - 1) / BN, splits);
+  const int cgr = chunk / GROUP;
+  cudaError_t err =
+      M <= 1   ? launch_mr<1, BITS>(grid, x, x_bf16, codes, scale, bias,
+                                    rowsum, out, ws, M, N, K, cgr, vec, stream)
+      : M <= 2 ? launch_mr<2, BITS>(grid, x, x_bf16, codes, scale, bias,
+                                    rowsum, out, ws, M, N, K, cgr, vec, stream)
+      : M <= 4 ? launch_mr<4, BITS>(grid, x, x_bf16, codes, scale, bias,
+                                    rowsum, out, ws, M, N, K, cgr, vec, stream)
+               : launch_mr<8, BITS>(grid, x, x_bf16, codes, scale, bias,
+                                    rowsum, out, ws, M, N, K, cgr, vec,
+                                    stream);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long mn = (long long)M * N;
+  if ((mn + CX - 1) / CX > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  combine<Tag<BITS>><<<static_cast<unsigned>((mn + CX - 1) / CX),
+                       dim3(CX, CY), 0, stream>>>(ws, scale, bias, rowsum,
+                                                  out, M, N, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace stream
+
+// ---------------------------------------------------------------------------
+// tile: the prefill path
+// ---------------------------------------------------------------------------
+namespace tile {
+
+constexpr int BM = 128, BN = 128, BK = 64;
+constexpr int ROW = 128;           // bytes of one swizzled row: 64 bf16
+constexpr int NT = 384;            // two consumer warpgroups, one producer
+constexpr int RAW_STAGES = 4;      // raw code tiles in flight
+constexpr int EMPTY_ARRIVALS = 8;  // one per consumer warp
+constexpr int FULL_ARRIVALS = 5;   // the TMA issue, one per producer warp
+
+// Shared memory from a 1024-byte aligned base: the x ring (STAGES x XT
+// tiles of 128 rows x 128 bytes), the bf16 code ring (STAGES x two boxes
+// of 64 K rows x 128 bytes), the raw ring (RAW_STAGES x RAW_ROWS x 128
+// bytes), then the mbarriers: full [STAGES], empty [STAGES], raw
+// [RAW_STAGES].
+template <int BITS, bool HILO>
+struct Layout {
+  static constexpr int STAGES = HILO ? 3 : 4;
+  static constexpr int XT = HILO ? 2 : 1;
+  static constexpr int X_BYTES = BM * ROW;         // 16 KB
+  static constexpr int B_BYTES = BK * BN * 2;      // 16 KB
+  static constexpr int RAW_ROWS = BK * BITS / 8;   // 64, 32 or 16
+  static constexpr int RAW_BYTES = RAW_ROWS * BN;  // 8, 4 or 2 KB
+  static constexpr int B_OFF = STAGES * XT * X_BYTES;
+  static constexpr int RAW_OFF = B_OFF + STAGES * B_BYTES;
+  static constexpr int BAR_OFF = RAW_OFF + RAW_STAGES * RAW_BYTES;
+  static constexpr int ALLOC = BAR_OFF + (2 * STAGES + RAW_STAGES) * 8 + 1024;
+  static_assert(ALLOC <= 232448, "over the 227 KB a block can use");
+};
+
+// One TMA box of a 2-D map at (c0, c1) into shared memory; completion
+// counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define F16(i) F4(i), F4(i + 4), F4(i + 8), F4(i + 12)
+#define F32(i) F16(i), F16(i + 16)
+
+// D (+)= A B over one k16 slice: A (64 x 16) K-major and B (16 x 128)
+// MN-major, both in shared memory.
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
+                                      uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : F32(0), F32(32)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef F32
+#undef F16
+#undef F4
+
+// Widens one raw tile (RAW_ROWS x 128 bytes at `raw`, K rows k0 ..) into
+// the bf16 tile at `bt`: K row r, column c at box c / 64, row r, 16-byte
+// chunk ((c % 64) / 8) ^ (r % 8) (the 128-byte swizzle). Codes of K rows
+// >= K are zeros. Run by the 128 producer threads, thread t.
+template <int BITS>
+__device__ __forceinline__ void widen(const uint8_t* raw, uint8_t* bt, int k0,
+                                      int K, int t) {
+  constexpr int PER = 8 / BITS;
+  constexpr int RAW_ROWS = BK * BITS / 8;
+  const float off = code_offset<BITS>();
+#pragma unroll
+  for (int j = 0; j < RAW_ROWS / 16; ++j) {
+    const int it = t + 128 * j;
+    const int p = it / 8, q = it % 8;  // raw row, 16-column chunk
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + p * BN + q * 16);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int f = 0; f < PER; ++f) {
+      const int r = p * PER + f;  // K row in the tile
+      uint32_t h[8];
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const uint32_t fw = fields<BITS>(w[qq], f);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            __fsub_rn(magic(fw, 0), off), __fsub_rn(magic(fw, 1), off));
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(
+            __fsub_rn(magic(fw, 2), off), __fsub_rn(magic(fw, 3), off));
+        h[2 * qq] = *reinterpret_cast<const uint32_t*>(&lo);
+        h[2 * qq + 1] = *reinterpret_cast<const uint32_t*>(&hi);
+      }
+      if (k0 + r >= K) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) h[e] = 0u;
+      }
+      uint8_t* row = bt + (q / 4) * (BK * ROW) + r * ROW;
+      const int ch = (q % 4) * 2;
+      *reinterpret_cast<uint4*>(row + (((ch) ^ (r & 7)) << 4)) =
+          make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(row + (((ch + 1) ^ (r & 7)) << 4)) =
+          make_uint4(h[4], h[5], h[6], h[7]);
+    }
+  }
+}
+
+template <class TAG, int BITS, bool HILO>
+__global__ void __launch_bounds__(NT, 1)
+    kernel(const __grid_constant__ CUtensorMap xmap,
+           const __grid_constant__ CUtensorMap xlo_map,
+           const __grid_constant__ CUtensorMap cmap,
+           const float* __restrict__ scale, const float* __restrict__ bias,
+           const float* __restrict__ rowsum, float* __restrict__ out, int M,
+           int N, int K) {
+  using L = Layout<BITS, HILO>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sbase = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  const uint32_t base = smem_u32(sbase);
+  const uint32_t x_s = base, b_s = base + L::B_OFF;
+  const uint32_t raw_s = base + L::RAW_OFF, bars = base + L::BAR_OFF;
+  // full: bars + 8 s; empty: + 8 (STAGES + s); raw: + 8 (2 STAGES + r)
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (K + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, FULL_ARRIVALS);
+      mbar_init(bars + 8 * (STAGES + s), EMPTY_ARRIVALS);
+    }
+    for (int r = 0; r < RAW_STAGES; ++r)
+      mbar_init(bars + 8 * (2 * STAGES + r), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer warpgroup: thread 0 issues every TMA load, all 128 widen
+    const int t = threadIdx.x - 256;
+    const bool issuer = t == 0;
+    auto load_raw = [&](int i) {
+      const int r = i % RAW_STAGES;
+      const uint32_t bar = bars + 8 * (2 * STAGES + r);
+      mbar_expect_tx(bar, L::RAW_BYTES);
+      tma_load_2d(raw_s + r * L::RAW_BYTES, &cmap, n0, i * L::RAW_ROWS, bar);
+    };
+    if (issuer)
+      for (int i = 0; i < min(nk, RAW_STAGES - 1); ++i) load_raw(i);
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % STAGES, phase = (i / STAGES) & 1;
+      const int r = i % RAW_STAGES, rphase = (i / RAW_STAGES) & 1;
+      const uint32_t full = bars + 8 * s;
+      if (issuer) {
+        // slot (i - 1) % RAW_STAGES: widened by every producer thread
+        // before the named barrier that ended step i - 1
+        if (i + RAW_STAGES - 1 < nk) {
+          fence_proxy_async();
+          load_raw(i + RAW_STAGES - 1);
+        }
+      }
+      mbar_wait(bars + 8 * (STAGES + s), phase ^ 1);
+      if (issuer) {
+        mbar_expect_tx(full, L::XT * L::X_BYTES);
+        const uint32_t xt = x_s + s * L::XT * L::X_BYTES;
+        tma_load_2d(xt, &xmap, i * BK, m0, full);
+        if constexpr (HILO)
+          tma_load_2d(xt + L::X_BYTES, &xlo_map, i * BK, m0, full);
+      }
+      mbar_wait(bars + 8 * (2 * STAGES + r), rphase);
+      widen<BITS>(sbase + L::RAW_OFF + r * L::RAW_BYTES,
+                  sbase + L::B_OFF + s * L::B_BYTES, i * BK, K, t);
+      fence_proxy_async();
+      __syncwarp();
+      if ((t & 31) == 0) mbar_arrive(full);
+      asm volatile("bar.sync 1, 128;" ::: "memory");
+    }
+  } else {
+    // consumer warpgroup w: rows m0 + 64 w .. + 63
+    const int w = threadIdx.x >> 7;
+    const int lane = threadIdx.x & 31;
+    float acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % STAGES, phase = (i / STAGES) & 1;
+      mbar_wait(bars + 8 * s, phase);
+      const uint32_t xa = x_s + s * L::XT * L::X_BYTES + w * 64 * ROW;
+      const uint32_t bt = b_s + s * L::B_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma(acc, desc(xa + kk * 32), desc(bt + kk * 16 * ROW, BK * ROW),
+              i > 0 || kk > 0);
+      if constexpr (HILO) {
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma(acc, desc(xa + L::X_BYTES + kk * 32),
+                desc(bt + kk * 16 * ROW, BK * ROW), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_one();  // step i - 1's products are done: free its stage
+      if (i > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bars + 8 * (STAGES + (i - 1) % STAGES));
+      }
+    }
+    wgmma_wait_all();
+#pragma unroll
+    for (int e = 0; e < 64; ++e) pin(acc[e]);
+
+    // element 4 j + e: row g (e < 2) or g + 8, column 8 j + 2 t4 + e % 2
+    const int g = lane >> 2, t4 = lane & 3;
+    const int row0 = m0 + 64 * w + 16 * ((threadIdx.x >> 5) & 3) + g;
+    const int row1 = row0 + 8;
+    const float rs0 = row0 < M ? rowsum[row0] : 0.f;
+    const float rs1 = row1 < M ? rowsum[row1] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + 8 * j + 2 * t4 + e;
+        if (n >= N) continue;
+        const float sc = scale[n], bi = bias[n];
+        if (row0 < M)
+          out[(size_t)row0 * N + n] =
+              fmaf(acc[4 * j + e], sc, __fmul_rn(rs0, bi));
+        if (row1 < M)
+          out[(size_t)row1 * N + n] =
+              fmaf(acc[4 * j + 2 + e], sc, __fmul_rn(rs1, bi));
+      }
+  }
+}
+
+// x as bf16 rows of kp (a multiple of 8) elements, zeros past K: hi =
+// bf16(x), and with `lo` lo = bf16(x - hi).
+template <class TAG>
+__global__ void __launch_bounds__(256)
+    prep_x(const void* __restrict__ x, int x_bf16, int M, int K, int kp,
+           __nv_bfloat16* __restrict__ hi, __nv_bfloat16* __restrict__ lo) {
+  const size_t total = (size_t)M * kp;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int m = static_cast<int>(i / kp), k = static_cast<int>(i % kp);
+    float v = 0.f;
+    if (k < K) {
+      const size_t at = (size_t)m * K + k;
+      v = x_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[at])
+                 : static_cast<const float*>(x)[at];
+    }
+    const __nv_bfloat16 h = __float2bfloat16_rn(v);
+    hi[i] = h;
+    if (lo != nullptr) lo[i] = __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(h)));
+  }
+}
+
+// codes (rows, N) bytes into rows of np (a multiple of 16) bytes, zeros
+// past N.
+template <class TAG>
+__global__ void __launch_bounds__(256)
+    pad_codes(const uint8_t* __restrict__ codes, int rows, int N, int np,
+              uint8_t* __restrict__ dst) {
+  const size_t total = (size_t)rows * np;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int r = static_cast<int>(i / np), c = static_cast<int>(i % np);
+    dst[i] = c < N ? codes[(size_t)r * N + c] : 0;
+  }
+}
+
+// A 2-D map of `rows` rows of `cols` elements, `row_bytes` apart; boxes of
+// box_cols x box_rows, zeros outside.
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+               int cols, int rows, long long row_bytes, int box_cols,
+               int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+size_t round_up(size_t v, size_t to) { return (v + to - 1) / to * to; }
+
+int blocks_for(size_t total) {
+  return static_cast<int>(std::min<size_t>((total + 255) / 256, 4096));
+}
+
+// The tile path: x_prep / codes_prep say whether x and codes go through
+// prep_x / pad_codes into `ws` first (the wrapper decides, from dtype,
+// shapes and alignment; `ws` holds the prepared x, then the codes, each
+// from a 256-byte boundary).
+template <int BITS>
+int launch(const void* x, int x_bf16, const uint8_t* codes,
+           const float* scale, const float* bias, const float* rowsum,
+           float* out, void* ws, long long ws_bytes, int M, int N, int K,
+           int x_prep, int codes_prep, cudaStream_t stream) {
+  constexpr int PER = 8 / BITS;
+  const int rows = BITS == 8 ? K : (K + PER - 1) / PER;
+  const bool hilo = !x_bf16;
+  if (hilo && !x_prep) return static_cast<int>(cudaErrorInvalidValue);
+  uint8_t* w = static_cast<uint8_t*>(ws);
+  size_t used = 0;
+  const void* xa = x;
+  const void* xl = x;
+  long long x_row = (long long)K * 2;
+  if (x_prep) {
+    const size_t kp = round_up(K, 8), term = round_up((size_t)M * kp * 2, 256);
+    if (w == nullptr || (size_t)ws_bytes < (hilo ? 2 : 1) * term)
+      return static_cast<int>(cudaErrorInvalidValue);
+    __nv_bfloat16* hi = reinterpret_cast<__nv_bfloat16*>(w);
+    __nv_bfloat16* lo = hilo ? reinterpret_cast<__nv_bfloat16*>(w + term)
+                             : nullptr;
+    prep_x<Tag<BITS>><<<blocks_for((size_t)M * kp), 256, 0, stream>>>(
+        x, x_bf16, M, K, (int)kp, hi, lo);
+    xa = hi;
+    xl = hilo ? static_cast<const void*>(lo) : static_cast<const void*>(hi);
+    x_row = (long long)kp * 2;
+    used = (hilo ? 2 : 1) * term;
+  }
+  const uint8_t* cp = codes;
+  long long c_row = N;
+  if (codes_prep) {
+    const size_t np = round_up(N, 16);
+    if (w == nullptr || (size_t)ws_bytes < used + (size_t)rows * np)
+      return static_cast<int>(cudaErrorInvalidValue);
+    pad_codes<Tag<BITS>><<<blocks_for((size_t)rows * np), 256, 0, stream>>>(
+        codes, rows, N, (int)np, w + used);
+    cp = w + used;
+    c_row = (long long)np;
+  }
+  if (reinterpret_cast<uintptr_t>(xa) % 16 || x_row % 16 ||
+      reinterpret_cast<uintptr_t>(cp) % 16 || c_row % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xm, xlm, cm;
+  if (!encode_2d(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xa, K, M, x_row, BK,
+                 BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      (hilo && !encode_2d(&xlm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xl, K, M,
+                          x_row, BK, BM, CU_TENSOR_MAP_SWIZZLE_128B)) ||
+      !encode_2d(&cm, CU_TENSOR_MAP_DATA_TYPE_UINT8, cp, N, rows, c_row, BN,
+                 Layout<BITS, false>::RAW_ROWS, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!hilo) xlm = xm;  // unread
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (hilo) {
+    auto fn = kernel<Tag<BITS>, BITS, true>;
+    constexpr int smem = Layout<BITS, true>::ALLOC;
+    static std::atomic<std::uint64_t> opted{0};
+    const cudaError_t err = opt_in_smem(fn, smem, opted);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fn<<<grid, NT, smem, stream>>>(xm, xlm, cm, scale, bias, rowsum, out, M,
+                                   N, K);
+  } else {
+    auto fn = kernel<Tag<BITS>, BITS, false>;
+    constexpr int smem = Layout<BITS, false>::ALLOC;
+    static std::atomic<std::uint64_t> opted{0};
+    const cudaError_t err = opt_in_smem(fn, smem, opted);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fn<<<grid, NT, smem, stream>>>(xm, xlm, cm, scale, bias, rowsum, out, M,
+                                   N, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tile
+
+template <int BITS>
+int launch_fused(const void* x, int x_bf16, const void* codes,
+                 const float* scale, const float* bias, const float* rowsum,
+                 float* out, void* ws, long long ws_bytes, int M, int N,
+                 int K, int path, int splits, int chunk, int x_prep,
+                 int codes_prep, cudaStream_t stream) {
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  if (path == 0) {
+    if (splits > 1 && ws_bytes < (long long)splits * M * N * 4)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return stream::launch<BITS>(x, x_bf16, c, scale, bias, rowsum, out,
+                                static_cast<float*>(ws), M, N, K, splits,
+                                chunk, stream);
+  }
+  if (path == 1 && K > 0)
+    return tile::launch<BITS>(x, x_bf16, c, scale, bias, rowsum, out, ws,
+                              ws_bytes, M, N, K, x_prep, codes_prep, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -458,34 +1154,36 @@ int launch_int_any(const void* x, int quant, const void* codes,
 
 }  // namespace
 
-// x (M, K) fp32, codes (K, N) int8, scale/bias (N,) fp32, rowsum (M,) fp32,
-// out (M, N) fp32; all contiguous, on the device of `stream`.
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int quant_matmul_f32_i8(const float* x, const int8_t* codes,
-                                   const float* scale, const float* bias,
-                                   const float* rowsum, float* out, int M,
-                                   int N, int K, void* stream) {
-  launch_i8(x, codes, scale, bias, rowsum, out, M, N, K,
-            static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
-}
 
-// As quant_matmul_f32_i8, with codes (ceil(K/per), N) uint8 packing
-// bits in {2, 4} per code (per = 8 / bits) and K the logical fan-in.
-// Returns cudaErrorInvalidValue for other bits, else cudaGetLastError().
-extern "C" int quant_matmul_f32_packed(const float* x, const uint8_t* packed,
-                                       const float* scale, const float* bias,
-                                       const float* rowsum, float* out, int M,
-                                       int N, int K, int bits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 2) {
-    launch_packed<2>(x, packed, scale, bias, rowsum, out, M, N, K, s);
-  } else if (bits == 4) {
-    launch_packed<4>(x, packed, scale, bias, rowsum, out, M, N, K, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+// K1 (bits 8: codes (K, N) int8) and K4 (bits 2 or 4: codes
+// (ceil(K/per), N) uint8 packed along K, K the logical fan-in). x (M, K)
+// bf16 (x_bf16 = 1) or fp32; scale/bias (N,) fp32; rowsum (M,) fp32; out
+// (M, N) fp32; all contiguous, on the device of `stream`. path 0: the
+// stream, `splits` splits of `chunk` K rows (a multiple of 4), a (splits,
+// M, N) fp32 workspace when splits > 1; path 1: the wgmma tile, with
+// x_prep / codes_prep as the wrapper decided them and `ws` holding what
+// they need (see tile::launch). `ws_bytes` is the workspace's size.
+// Returns cudaErrorInvalidValue for other bits or paths, a workspace too
+// small or operands TMA cannot take unprepared, else cudaGetLastError()
+// after the last launch (0 = launched).
+extern "C" int quant_matmul_fused(const void* x, int x_bf16,
+                                  const void* codes, int bits,
+                                  const float* scale, const float* bias,
+                                  const float* rowsum, float* out, void* ws,
+                                  long long ws_bytes, int M, int N, int K,
+                                  int path, int splits, int chunk,
+                                  int x_prep, int codes_prep, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+#define FUSED(B)                                                          \
+  launch_fused<B>(x, x_bf16, codes, scale, bias, rowsum, out, ws, ws_bytes, \
+                  M, N, K, path, splits, chunk, x_prep, codes_prep, s)
+  switch (bits) {
+    case 8: return FUSED(8);
+    case 4: return FUSED(4);
+    case 2: return FUSED(2);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef FUSED
 }
 
 // K5. quant = 0: x is (M, K) int8 activation codes and rowsum (M,) fp32

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 for ``sm_90a`` into ``build/repro_torch/lib<name>-<hash>.so`` at the root
-of the checkout, at first use. The hash covers the source and the flags, so
-an edited source is rebuilt and an unchanged one is reused. Every missing
+of the checkout, at first use. The hash covers the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused. Every missing
 library is compiled at once, one ``nvcc`` process per source. Nothing here
 runs at import: the CPU tests import every module and have no ``nvcc``.
 
@@ -46,10 +47,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    of every shared header ``csrc/*.cuh`` (a source may include any of
+    them) and of the flags."""
+    digest = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, dict]:

@@ -2,9 +2,11 @@
 ``repro/kernels/quant_matmul/ops.py``.
 
 ``quant_matmul_op`` (int8 codes) and ``quant_matmul_packed_op`` (2/4-bit
-codes packed along K) flatten the leading activation dims, cast to fp32 and
-compute ``rowsum(x)`` for the kernels' epilogue; the wrappers then launch
-the CUDA kernel for a CUDA tensor or take the plain version for a CPU one.
+codes packed along K) flatten the leading activation dims, pass bf16
+activations through as they are (the kernels read bf16; other dtypes are
+cast to fp32) and compute ``rowsum(x)`` in fp32 for the kernels'
+epilogue; the wrappers then launch the CUDA kernel for a CUDA tensor or
+take the plain version for a CPU one (which widens x to fp32 itself).
 
 ``int_matmul_op`` / ``int_matmul_packed_op`` (DESIGN.md §16) quantize the
 activation per tensor (``quantize_to_int``), and fold the activation grid
@@ -36,11 +38,21 @@ def _flatten(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
 
 
+def _flatten_act(x: torch.Tensor):
+    """K1/K4's activation as (M, K), bf16 kept (no fp32 copy) and anything
+    else fp32, with its fp32 row sums."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.dtype != torch.bfloat16:
+        x2 = x2.to(torch.float32)
+    x2 = x2.contiguous()
+    return x2, x2.sum(dim=1, dtype=torch.float32)
+
+
 def quant_matmul_op(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
     """y = x @ (codes*scale + bias); x: (..., K), codes: (K, N) int8."""
-    x2 = _flatten(x)
-    y = quant_matmul(x2, codes, scale, bias, x2.sum(dim=1))
+    x2, rowsum = _flatten_act(x)
+    y = quant_matmul(x2, codes, scale, bias, rowsum)
     return y.reshape(*x.shape[:-1], codes.shape[1])
 
 
@@ -48,9 +60,8 @@ def quant_matmul_packed_op(x: torch.Tensor, packed: torch.Tensor,
                            scale: torch.Tensor, bias: torch.Tensor, *,
                            bits: int, k: int) -> torch.Tensor:
     """Packed twin of ``quant_matmul_op``: packed (ceil(K/per), N) uint8."""
-    x2 = _flatten(x)
-    y = quant_matmul_packed(x2, packed, scale, bias, x2.sum(dim=1),
-                            bits=bits, k=k)
+    x2, rowsum = _flatten_act(x)
+    y = quant_matmul_packed(x2, packed, scale, bias, rowsum, bits=bits, k=k)
     return y.reshape(*x.shape[:-1], packed.shape[1])
 
 

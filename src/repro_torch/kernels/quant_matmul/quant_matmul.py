@@ -13,10 +13,19 @@ product of int8 activation and weight codes summed in int32:
 takes fp32 activations with their per-tensor grid (``act``) and quantizes
 them in the kernel, as the serving path does. The source's header says
 what bounds the kernels and how they are laid out.
+
+K1 and K4 take x in bf16 (the serving path's activations) or fp32 and run
+one of two paths, picked from (M, N, K) alone and the same for both
+(``kernel_path``): at M <= ``DECODE_M`` a split-K stream of the codes over
+``split_plan``'s chunks, with a second launch that adds the splits'
+partials in split order; above it bf16 ``wgmma`` tiles with the codes
+widened to bf16 in shared memory (fp32 x as two bf16 terms). Either way
+one call counts one launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -31,22 +40,124 @@ from .ref import (int_matmul_packed_ref, int_matmul_ref,
                   quantize_act_ref)
 
 
+# M at or below which K1/K4 stream the codes (decode: the serving slots);
+# above it they run the wgmma tiles (prefill)
+DECODE_M = 8
+# the stream's blocks: 128 columns, 16 K slices of whole groups of 4 K rows
+# (one packed row at 2 bits, two at 4); a launch aims at 2 blocks an SM of
+# an H100 (132 SMs), each split at least a quarter of a block's slices deep
+_STREAM_COLS, _STREAM_SLICES, _GROUP = 128, 16, 4
+_STREAM_BLOCKS = 2 * 132
+_MIN_CHUNK_GROUPS = _STREAM_SLICES // 4
+# a block stages its chunk's x in shared memory: at most 4096 K rows
+_MAX_CHUNK_GROUPS = 1024
+_MAX_SPLITS = 65535
+_PATHS = {"stream": 0, "wgmma": 1}
+
+
+def kernel_path(m: int, n: int, k: int) -> str:
+    """The path K1 and K4 take at (M, N, K): ``"stream"`` (decode, M <=
+    ``DECODE_M``, or K = 0) or ``"wgmma"`` (prefill). Never depends on
+    bits or dtype."""
+    return "stream" if m <= DECODE_M or k == 0 else "wgmma"
+
+
+@functools.lru_cache(maxsize=4096)
+def split_plan(n: int, k: int) -> tuple[int, int]:
+    """(splits, chunk) of the stream path over N columns and K rows:
+    ``chunk`` K rows a split, a whole number of groups of 4 (so of packed
+    rows at 2 and 4 bits) and of 8 (whole 16-byte loads of bf16 x),
+    ``splits = ceil(K / chunk)``; as many splits as keep ceil(N / 128) x
+    splits within one wave of ~2 blocks an SM, none shallower than 4
+    groups nor deeper than 1024 (4096 K rows of x staged in shared
+    memory). From (N, K) alone: K1 and K4 at every bits sum in one
+    order."""
+    groups = max(1, -(-k // _GROUP))
+    n_tiles = -(-n // _STREAM_COLS)
+    want = max(1, _STREAM_BLOCKS // max(1, n_tiles))
+    chunk_groups = min(_MAX_CHUNK_GROUPS,
+                       max(_MIN_CHUNK_GROUPS, -(-groups // want)))
+    chunk_groups += chunk_groups % 2   # 8 K rows: whole 16-byte x loads
+    return -(-groups // chunk_groups), chunk_groups * _GROUP
+
+
+def _round_up(v: int, to: int) -> int:
+    return -(-v // to) * to
+
+
+def _tile_prep(x, codes, m: int, n: int, k: int):
+    """(x_prep, codes_prep, workspace bytes) of the wgmma path, as
+    ``csrc/quant_matmul.cu:tile::launch`` lays the workspace out: x goes
+    through ``prep_x`` unless it is bf16 with 16-byte aligned rows (fp32 x
+    as two bf16 terms), codes through ``pad_codes`` unless their rows are
+    16-byte aligned."""
+    rows = codes.shape[0]
+    x_prep = x.dtype != torch.bfloat16 or k % 8 != 0 \
+        or x.data_ptr() % 16 != 0
+    codes_prep = n % 16 != 0 or codes.data_ptr() % 16 != 0
+    nbytes = 0
+    if x_prep:
+        terms = 1 if x.dtype == torch.bfloat16 else 2
+        nbytes += terms * _round_up(m * _round_up(k, 8) * 2, 256)
+    if codes_prep:
+        nbytes += rows * _round_up(n, 16)
+    return x_prep, codes_prep, nbytes
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = _build.load("quant_matmul").quant_matmul_f32_i8
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
+def _fused_fn():
+    fn = _build.load("quant_matmul").quant_matmul_fused
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int] + [ctypes.c_void_p] * 5 \
+        + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _packed_kernel_fn():
-    fn = _build.load("quant_matmul").quant_matmul_f32_packed
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _current(dev: int):
+    """A context that makes ``dev`` current only when it is not; the
+    current stream's raw handle is read without building a Stream."""
+    return contextlib.nullcontext() if dev == torch.cuda.current_device() \
+        else torch.cuda.device(dev)
+
+
+def _fused_launch(wrapper, x, codes, scale, bias, rowsum, *, bits: int,
+                  k: int) -> torch.Tensor:
+    """Check, launch K1 (``bits`` 8) or K4 on the current stream without
+    synchronising, count one launch and note its path (``wrapper.path``,
+    ``kernel_path``'s tag); raise if it was refused."""
+    _check(x, codes, scale, bias, rowsum, bits=bits)
+    m, n = x.shape[0], codes.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if not (m and n):
+        return out
+    path = kernel_path(m, n, k)
+    splits, chunk, x_prep, codes_prep = 1, 0, False, False
+    if path == "stream":
+        splits, chunk = split_plan(n, k)
+        if splits > _MAX_SPLITS:
+            raise ValueError(f"{splits} splits of K = {k} exceed the grid")
+        nbytes = 4 * splits * m * n if splits > 1 else 0
+    else:
+        x_prep, codes_prep, nbytes = _tile_prep(x, codes, m, n, k)
+    # freed when this returns: the caching allocator hands it out again
+    # only to work that the stream runs after this call's launches
+    ws = torch.empty((nbytes,), dtype=torch.uint8, device=x.device) \
+        if nbytes else None
+    dev = x.get_device()
+    with _current(dev):
+        rc = _fused_fn()(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
+            bits, scale.data_ptr(), bias.data_ptr(), rowsum.data_ptr(),
+            out.data_ptr(), None if ws is None else ws.data_ptr(), nbytes,
+            m, n, k, _PATHS[path], splits, chunk, int(x_prep),
+            int(codes_prep), torch._C._cuda_getCurrentRawStream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
+                           f"{rc}")
+    wrapper.launches += 1
+    wrapper.path = path
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,11 +175,18 @@ def _int_kernel_fn(bits: int):
     return fn
 
 
+# the activations K1 and K4 read
+X_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check(x, codes, scale, bias, rowsum, *, bits: int = 8):
-    """Device, dtype, shape and contiguity of the operands. ``bits`` 8:
-    int8 codes (K, N); 2 or 4: uint8 codes (ceil(K/per), N)."""
+    """Device, dtype, shape and contiguity of the operands. x: fp32 or
+    bf16 (``X_DTYPES``); ``bits`` 8: int8 codes (K, N); 2 or 4: uint8 codes
+    (ceil(K/per), N)."""
     if x.ndim != 2:
         raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
+    if x.dtype not in X_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     m, k = x.shape
     rows = k if bits == 8 else packed_rows(k, bits)
     if codes.ndim != 2 or codes.shape[0] != rows:
@@ -76,7 +194,7 @@ def _check(x, codes, scale, bias, rowsum, *, bits: int = 8):
                          f"{tuple(x.shape)} at {bits} bits")
     n = codes.shape[1]
     code_dtype = torch.int8 if bits == 8 else torch.uint8
-    want = ((x, torch.float32, (m, k)), (codes, code_dtype, (rows, n)),
+    want = ((x, x.dtype, (m, k)), (codes, code_dtype, (rows, n)),
             (scale, torch.float32, (n,)), (bias, torch.float32, (n,)),
             (rowsum, torch.float32, (m,)))
     for t, dtype, shape in want:
@@ -93,8 +211,8 @@ def _check(x, codes, scale, bias, rowsum, *, bits: int = 8):
 
 def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                  bias: torch.Tensor, rowsum: torch.Tensor) -> torch.Tensor:
-    """x: (M, K) fp32; codes: (K, N) int8; scale/bias: (N,) fp32; rowsum:
-    (M,) fp32 ``sum_k x[m, k]``. Returns (M, N) fp32.
+    """x: (M, K) fp32 or bf16; codes: (K, N) int8; scale/bias: (N,) fp32;
+    rowsum: (M,) fp32 ``sum_k x[m, k]``. Returns (M, N) fp32.
 
     A CPU tensor takes the plain version (``quant_matmul_ref``); a CUDA
     tensor launches the kernel on the current stream, without
@@ -104,32 +222,21 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
         return quant_matmul_ref(x, codes, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul runs on cpu or cuda, not {x.device}")
-    _check(x, codes, scale, bias, rowsum)
-    m, k = x.shape
-    n = codes.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m and n:
-        with torch.cuda.device(x.device):
-            rc = _kernel_fn()(
-                x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
-                bias.data_ptr(), rowsum.data_ptr(), out.data_ptr(), m, n, k,
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"quant_matmul launch failed: CUDA error {rc}")
-        quant_matmul.launches += 1
-    return out
+    return _fused_launch(quant_matmul, x, codes, scale, bias, rowsum,
+                         bits=8, k=x.shape[-1])
 
 
 quant_matmul.launches = 0
+quant_matmul.path = None
 
 
 def quant_matmul_packed(x: torch.Tensor, packed: torch.Tensor,
                         scale: torch.Tensor, bias: torch.Tensor,
                         rowsum: torch.Tensor, *, bits: int,
                         k: int) -> torch.Tensor:
-    """x: (M, K) fp32; packed: (ceil(K/per), N) uint8 ``bits``-bit codes
-    (``quant/pack.py`` layout); scale/bias: (N,) fp32; rowsum: (M,) fp32;
-    ``k`` the logical fan-in (x's K). Returns (M, N) fp32.
+    """x: (M, K) fp32 or bf16; packed: (ceil(K/per), N) uint8 ``bits``-bit
+    codes (``quant/pack.py`` layout); scale/bias: (N,) fp32; rowsum: (M,)
+    fp32; ``k`` the logical fan-in (x's K). Returns (M, N) fp32.
 
     A CPU tensor takes the plain version (``quant_matmul_packed_ref``); a
     CUDA tensor launches K4 on the current stream, without synchronising,
@@ -145,24 +252,12 @@ def quant_matmul_packed(x: torch.Tensor, packed: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul_packed runs on cpu or cuda, not "
                          f"{x.device}")
-    _check(x, packed, scale, bias, rowsum, bits=bits)
-    m = x.shape[0]
-    n = packed.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m and n:
-        with torch.cuda.device(x.device):
-            rc = _packed_kernel_fn()(
-                x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                bias.data_ptr(), rowsum.data_ptr(), out.data_ptr(), m, n, k,
-                bits, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"quant_matmul_packed launch failed: CUDA "
-                               f"error {rc}")
-        quant_matmul_packed.launches += 1
-    return out
+    return _fused_launch(quant_matmul_packed, x, packed, scale, bias, rowsum,
+                         bits=bits, k=k)
 
 
 quant_matmul_packed.launches = 0
+quant_matmul_packed.path = None
 
 
 def _check_int(x, codes, eff_scale, eff_bias, rowsum, const, act, *,
@@ -215,14 +310,15 @@ def _int_launch(wrapper, x, codes, eff_scale, eff_bias, rowsum, const, act,
     if m and n:
         grid, act_bits = act if act is not None else (None, 0)
         tail = (m, n, k) if bits == 8 else (m, n, k, bits)
-        with torch.cuda.device(x.device):
+        dev = x.get_device()
+        with _current(dev):
             rc = _int_kernel_fn(bits)(
                 x.data_ptr(), int(act is not None), codes.data_ptr(),
                 eff_scale.data_ptr(), eff_bias.data_ptr(),
                 None if rowsum is None else rowsum.data_ptr(),
                 const.data_ptr(), None if grid is None else grid.data_ptr(),
                 act_bits, out.data_ptr(), *tail,
-                torch.cuda.current_stream().cuda_stream)
+                torch._C._cuda_getCurrentRawStream(dev))
         if rc != 0:
             raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA "
                                f"error {rc}")

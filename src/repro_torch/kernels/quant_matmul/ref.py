@@ -7,6 +7,18 @@ import torch
 
 from repro_torch.quant.pack import unpack_codes
 
+# K1's and K4's tolerance against their plain versions, elementwise, as a
+# fraction of |x| @ |w| (w = codes * scale + bias): the kernels reassociate
+# an fp32 sum of up to K = 9216 terms (scale * sum(x * codes) + bias *
+# rowsum against x @ w; split-K partials; the tensor cores' fp32
+# accumulation once a k16 slice). Rounding errors of random sign grow like
+# sqrt(K) eps32 ~ 1e-5 of that magnitude; even errors of one sign in every
+# one of the K / 16 accumulations of the wgmma path stay under
+# (K / 16) eps32 ~ 3.4e-5; fp32 x enters the tensor cores as two bf16
+# terms, which leaves at most 2^-18 |x| (~3.8e-6) an element. A wrong index,
+# nibble or split (an error of order |x| @ |w|) still fails by far.
+K1_RTOL = 1e-4
+
 
 def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
                      scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

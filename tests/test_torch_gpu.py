@@ -42,8 +42,10 @@ from repro_torch.kernels.paged_attention.paged_attention import (
 from repro_torch.kernels.paged_attention.ref import (
     bf16_rounding_tolerance, paged_attention_ref)
 from repro_torch.kernels.quant_matmul.quant_matmul import (
-    int_matmul, int_matmul_packed, quant_matmul, quant_matmul_packed)
-from repro_torch.kernels.quant_matmul.ref import (int_matmul_packed_ref,
+    int_matmul, int_matmul_packed, kernel_path, quant_matmul,
+    quant_matmul_packed)
+from repro_torch.kernels.quant_matmul.ref import (K1_RTOL,
+                                                  int_matmul_packed_ref,
                                                   int_matmul_ref,
                                                   quant_matmul_packed_ref,
                                                   quant_matmul_ref,
@@ -59,8 +61,6 @@ from repro_torch.serving.window import WindowSpec
 
 pytestmark = pytest.mark.gpu
 
-# fp32 reassociation over K terms: 1e-4 of |x| @ |w| (see chip_smoke.py)
-K1_RTOL = 1e-4
 # bf16 probabilities in the plain version vs fp32 in the kernel: 2^-8 max|v|
 K2_TOL_FACTOR = 2.0 ** -8
 # K2b against the plain version with q in fp32 (no bf16 rounding at all):
@@ -77,25 +77,47 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("mkn", [(1, 64, 96), (8, 2048, 256), (9, 100, 37),
-                                 (64, 640, 130), (130, 64, 65)])
-def test_quant_matmul_kernel_matches_plain(cuda, mkn):
+# K1/K4 shapes (M, K, N): ragged ones, then the serving paths' own:
+# tinyllama's decode attn_k/v and mlp_down, gemma2's decode mlp_gate (M 4),
+# prefill rows at M 64 and 512 (tinyllama) and 4608 (gemma2 attn_k/v)
+QMM_SHAPES = [(1, 64, 96), (8, 2048, 256), (9, 100, 37), (64, 640, 130),
+              (130, 64, 65), (8, 5632, 2048), (4, 2304, 9216),
+              (64, 2048, 5632), (512, 2048, 256), (4608, 2304, 1024)]
+QMM_PACKED_SHAPES = [(3, 101, 37), (1, 64, 96), (8, 2048, 256),
+                     (64, 640, 130), (130, 66, 65), (8, 5632, 2048),
+                     (4, 2304, 9216), (64, 2048, 5632), (512, 2048, 256),
+                     (4608, 2304, 1024)]
+
+
+def _qmm_operands(mkn, bits, x_dtype, cuda, seed):
     m, k, n = mkn
-    g = torch.Generator(device=cuda).manual_seed(sum(mkn))
-    x = torch.randn((m, k), generator=g, device=cuda)
-    codes = torch.randint(-128, 128, (k, n), generator=g, device=cuda,
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=cuda).to(x_dtype)
+    half = 1 << (bits - 1)
+    codes = torch.randint(-half, half, (k, n), generator=g, device=cuda,
                           dtype=torch.int8)
     scale = torch.rand((n,), generator=g, device=cuda) * 0.01 + 1e-3
     bias = (torch.rand((n,), generator=g, device=cuda) - 0.5) * 1e-3
+    rowsum = x.sum(dim=1, dtype=torch.float32)
+    mag = x.float().abs() @ (codes.float() * scale + bias).abs()
+    return x, codes, scale, bias, rowsum, mag
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mkn", QMM_SHAPES)
+def test_quant_matmul_kernel_matches_plain(cuda, mkn, x_dtype):
+    """K1 on x in fp32 and in bf16 (the serving path) against its plain
+    version at K1_RTOL of |x| @ |w|; two calls give the same bits."""
+    x, codes, scale, bias, rowsum, mag = _qmm_operands(
+        mkn, 8, x_dtype, cuda, sum(mkn))
     before = quant_matmul.launches
-    got = quant_matmul(x, codes, scale, bias, x.sum(dim=1))
+    got = quant_matmul(x, codes, scale, bias, rowsum)
+    again = quant_matmul(x, codes, scale, bias, rowsum)
     want = quant_matmul_ref(x, codes, scale, bias)
-    mag = x.abs() @ (codes.float() * scale + bias).abs()
     torch.cuda.synchronize()
-    assert quant_matmul.launches == before + 1
+    assert quant_matmul.launches == before + 2
     assert bool(((got - want).abs() <= K1_RTOL * mag + 1e-6).all())
-
-
+    assert torch.equal(got, again)
 @pytest.mark.parametrize("hd", [16, 64, 128])
 @pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("softcap", [None, 5.0])
@@ -125,31 +147,49 @@ def test_paged_attention_kernel_matches_plain(cuda, hd, pool_dtype, softcap):
     assert float((got - want).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [2, 4])
-@pytest.mark.parametrize("mkn", [(3, 101, 37), (1, 64, 96), (8, 2048, 256),
-                                 (64, 640, 130), (130, 66, 65)])
-def test_quant_matmul_packed_kernel_matches_plain_and_k1(cuda, mkn, bits):
-    """K4 on pack(c) against its plain version, and bit for bit against K1
-    on c: same tiles, same K order, same epilogue."""
+@pytest.mark.parametrize("mkn", QMM_PACKED_SHAPES)
+def test_quant_matmul_packed_kernel_matches_plain_and_k1(cuda, mkn, bits,
+                                                         x_dtype):
+    """K4 on pack(c) against its plain version, bit for bit against K1 on
+    c (the same K order on both paths: the stream's split plan and the
+    tile's bf16 codes do not depend on bits), and two calls bit-identical;
+    x in fp32 and bf16."""
     m, k, n = mkn
-    g = torch.Generator(device=cuda).manual_seed(sum(mkn) + bits)
-    x = torch.randn((m, k), generator=g, device=cuda)
-    half = 1 << (bits - 1)
-    codes = torch.randint(-half, half, (k, n), generator=g, device=cuda,
-                          dtype=torch.int8)
+    x, codes, scale, bias, rowsum, mag = _qmm_operands(
+        mkn, bits, x_dtype, cuda, sum(mkn) + bits)
     packed = pack_codes(codes, bits)
-    scale = torch.rand((n,), generator=g, device=cuda) * 0.01 + 1e-3
-    bias = (torch.rand((n,), generator=g, device=cuda) - 0.5) * 1e-3
-    rowsum = x.sum(dim=1)
     before = quant_matmul_packed.launches
     got = quant_matmul_packed(x, packed, scale, bias, rowsum, bits=bits, k=k)
+    again = quant_matmul_packed(x, packed, scale, bias, rowsum, bits=bits,
+                                k=k)
     want = quant_matmul_packed_ref(x, packed, scale, bias, bits=bits, k=k)
     k1 = quant_matmul(x, codes, scale, bias, rowsum)
-    mag = x.abs() @ (codes.float() * scale + bias).abs()
     torch.cuda.synchronize()
-    assert quant_matmul_packed.launches == before + 1
+    assert quant_matmul_packed.launches == before + 2
     assert bool(((got - want).abs() <= K1_RTOL * mag + 1e-6).all())
     assert torch.equal(got, k1)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("mkn,path", [
+    ((8, 2048, 256), "stream"), ((8, 5632, 2048), "stream"),
+    ((4, 2304, 9216), "stream"), ((64, 2048, 5632), "wgmma"),
+    ((512, 2048, 256), "wgmma"), ((4608, 2304, 1024), "wgmma")])
+def test_serving_shapes_take_the_new_paths(cuda, mkn, path):
+    """The split-K stream at decode (M 4 and 8), the wgmma tiles at
+    prefill: the path each wrapper's last launch ran (``.path``), for K1
+    and K4 alike."""
+    m, k, n = mkn
+    x, codes, scale, bias, rowsum, _ = _qmm_operands(
+        mkn, 4, torch.bfloat16, cuda, 0)
+    assert kernel_path(m, n, k) == path
+    quant_matmul(x, codes, scale, bias, rowsum)
+    quant_matmul_packed(x, pack_codes(codes, 4), scale, bias, rowsum,
+                        bits=4, k=k)
+    torch.cuda.synchronize()
+    assert quant_matmul.path == quant_matmul_packed.path == path
 
 
 @pytest.mark.parametrize("act_bits", [8, 4])
