@@ -86,7 +86,8 @@ The kernels phase also holds K5 and K6 (int8 x int8 GEMMs summed in int32,
 slice 5) bit for bit against their plain versions at every GEMM shape of
 the int cells, with both activation loaders (int8 codes, and fp32
 activations quantized in the kernel), and K6 bit for bit against K5 on the
-unpacked codes, and K7 (whole-prompt flash attention, slice 6) within its
+unpacked codes and over two calls, naming its path (the split-K stream at
+the decode rows, the int8 wgmma tiles at the prefill rows), and K7 (whole-prompt flash attention, slice 6) within its
 stated tolerance at tinyllama's and gemma2's prefill shapes, a ragged S,
 fp32 operands, head_dim 128 and Hq == Hkv, each case naming the kernel it
 ran (bf16 at head_dim 64-256: tensor cores; fp32: FMA); the build phase
@@ -337,9 +338,10 @@ def phase_device():
 
 
 def sass_counts(name: str):
-    """{kernel: {op: count}} of wgmma (HGMMA) and TMA load (UTMALDG)
-    instructions in each kernel of a built library, read from its SASS with
-    the cuobjdump that ships beside the toolkit's nvcc (fails without it)."""
+    """{kernel: {op: count}} of wgmma (HGMMA on bf16, IGMMA on int8) and
+    TMA load (UTMALDG) instructions in each kernel of a built library, read
+    from its SASS with the cuobjdump that ships beside the toolkit's nvcc
+    (fails without it)."""
     from repro_torch.kernels import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -351,7 +353,7 @@ def sass_counts(name: str):
     for ln in sass.splitlines():
         if "Function :" in ln:
             fn = ln.split("Function :")[1].strip()
-            counts[fn] = dict.fromkeys(("HGMMA", "UTMALDG"), 0)
+            counts[fn] = dict.fromkeys(("HGMMA", "IGMMA", "UTMALDG"), 0)
         elif fn is not None:
             for op in counts[fn]:
                 counts[fn][op] += op in ln
@@ -376,18 +378,21 @@ def phase_build():
         print(f"[build] flash_attention SASS {fn}: "
               + ", ".join(f"{op} {n}" for op, n in c.items()))
     tc = {fn: c for fn, c in counts.items() if "tc6kernel" in fn}
-    check(len(tc) == 3 and all(min(c.values()) > 0 for c in tc.values()),
+    check(len(tc) == 3 and all(c["HGMMA"] and c["UTMALDG"]
+                               for c in tc.values()),
           f"K7's tensor-core instances lack HGMMA or UTMALDG: {tc}")
-    # K1/K4's prefill tiles (tile::kernel<bits 8/4/2, x bf16 or two terms>)
-    # likewise
-    tiles = {fn: c for fn, c in sass_counts("quant_matmul").items()
-             if "tile6kernel" in fn}
-    for fn, c in tiles.items():
-        print(f"[build] quant_matmul SASS {fn}: "
-              + ", ".join(f"{op} {n}" for op, n in c.items()))
-    check(len(tiles) == 6
-          and all(min(c.values()) > 0 for c in tiles.values()),
-          f"K1/K4's wgmma tiles lack HGMMA or UTMALDG: {tiles}")
+    # K1/K4's prefill tiles (tile::kernel<bits 8/4/2, x bf16 or two terms>:
+    # HGMMA) and K6's (itile::kernel<bits 2/4>: int8 wgmma, IGMMA) likewise
+    qmm = sass_counts("quant_matmul")
+    for ns, want, op, who in (("4tile6kernel", 6, "HGMMA", "K1/K4"),
+                              ("5itile6kernel", 2, "IGMMA", "K6")):
+        tiles = {fn: c for fn, c in qmm.items() if ns in fn}
+        for fn, c in tiles.items():
+            print(f"[build] quant_matmul SASS {fn}: "
+                  + ", ".join(f"{o} {n}" for o, n in c.items()))
+        check(len(tiles) == want
+              and all(c[op] and c["UTMALDG"] for c in tiles.values()),
+              f"{who}'s wgmma tiles lack {op} or UTMALDG: {tiles}")
 
 
 def _prompts(vocab: int, lo: int = PROMPT_LO, hi: int = PROMPT_HI):
@@ -674,10 +679,11 @@ def _int_operands(m: int, k: int, n: int, bits: int, gen):
     return x, grid, qx, rowsum, codes, es, eb, cst
 
 
-def _int_mm_ms(qx, codes):
+def _int_mm_ms(qx, codes, graph: bool = False):
     """``torch._int_mm`` (int8 x int8 -> int32, no epilogue) on the same
-    codes, at M = max(M, INT_MM_MIN_M) (it needs M > 16); None where K or N
-    is not a multiple of 8, which it refuses."""
+    codes, at M = max(M, INT_MM_MIN_M) (it needs M > 16), back to back or
+    (``graph``) as a replayed CUDA graph; None where K or N is not a
+    multiple of 8, which it refuses."""
     import torch
 
     m, k = qx.shape
@@ -689,7 +695,8 @@ def _int_mm_ms(qx, codes):
     a[:m] = qx
     cc = [codes.clone() for _ in range(copies_past_l2(codes.numel()))]
     it = iter(range(1 << 30))
-    return time_ms(lambda: torch._int_mm(a, cc[next(it) % len(cc)])), mm
+    timer = graph_ms if graph else time_ms
+    return timer(lambda: torch._int_mm(a, cc[next(it) % len(cc)])), mm
 
 
 def k5_case(m: int, k: int, n: int, gen, card: str):
@@ -750,7 +757,7 @@ def k6_case(m: int, k: int, n: int, bits: int, gen, card: str):
     import torch
 
     from repro_torch.kernels.quant_matmul.quant_matmul import (
-        int_matmul, int_matmul_packed)
+        int_matmul, int_matmul_packed, kernel_path)
     from repro_torch.kernels.quant_matmul.ref import (int_matmul_packed_ref,
                                                       quantize_act_ref)
     from repro_torch.quant.pack import pack_codes
@@ -764,21 +771,32 @@ def k6_case(m: int, k: int, n: int, bits: int, gen, card: str):
     got = int_matmul_packed(qx, packed, es, eb, rowsum, cst, bits=bits, k=k)
     fused = int_matmul_packed(x, packed, es, eb, None, cst, bits=bits, k=k,
                               act=act)
+    again = int_matmul_packed(x, packed, es, eb, None, cst, bits=bits, k=k,
+                              act=act)
+    path = int_matmul_packed.path
     k5 = int_matmul(x, codes, es, eb, None, cst, act=act)
     torch.cuda.synchronize()
     mismatches = int((got != want).sum()) + int((fused != want).sum())
     k5_mismatches = int((fused != k5).sum())
     err = max(float((got - want).abs().max()),
               float((fused - want).abs().max()))
-    res = {"shape": (m, k, n), "bits": bits, "mismatches": mismatches,
-           "k5_mismatches": k5_mismatches, "max_abs_err": err,
-           "ok": mismatches == 0 and k5_mismatches == 0}
+    res = {"shape": (m, k, n), "bits": bits, "path": path,
+           "mismatches": mismatches, "k5_mismatches": k5_mismatches,
+           "repeatable": bool(torch.equal(fused, again)),
+           "max_abs_err": err}
+    check(path == kernel_path(m, n, k),
+          f"int_matmul_packed ran {path}, not {kernel_path(m, n, k)}")
+    res["ok"] = mismatches == 0 and k5_mismatches == 0 and res["repeatable"]
 
     pc = [packed.clone() for _ in range(copies_past_l2(packed.numel()))]
     it = iter(range(1 << 30))
-    res["ms"] = time_ms(lambda: int_matmul_packed(
-        x, pc[next(it) % len(pc)], es, eb, None, cst, bits=bits, k=k,
-        act=act))
+
+    def run():
+        return int_matmul_packed(x, pc[next(it) % len(pc)], es, eb, None,
+                                 cst, bits=bits, k=k, act=act)
+    res["ms"] = time_ms(run)
+    res["graph_ms"] = graph_ms(run)
+    res["host_ms"] = host_ms(run)
 
     def plain():
         q, r = quantize_act_ref(x, grid, INT_ACT_BITS)
@@ -787,18 +805,23 @@ def k6_case(m: int, k: int, n: int, bits: int, gen, card: str):
 
     res["plain_ms"] = time_ms(plain)
     res["library_ms"], res["library_m"] = _int_mm_ms(qx, codes)
+    res["library_graph_ms"] = _int_mm_ms(qx, codes, graph=True)[0]
     res["bytes"] = 4 * m * k + packed.numel() + 12 * n + 12 + 4 * m * n
     res["flops"] = 2.0 * m * n * k
     res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], res["flops"],
                                                 INT8_OPS_S)
     lib = "n/a (K, N not multiples of 8)" if res["library_ms"] is None \
-        else f"{res['library_ms']:.4f} ms at M={res['library_m']}"
-    print(f"[kernels] int_matmul_packed {bits}-bit M={m} K={k} N={n}: "
-          f"{mismatches} mismatches against the plain version in 2 x "
+        else (f"{res['library_ms']:.4f} ms ({res['library_graph_ms']:.4f} ms "
+              f"graph) at M={res['library_m']}")
+    print(f"[kernels] int_matmul_packed {bits}-bit M={m} K={k} N={n}: path "
+          f"{path}; {mismatches} mismatches against the plain version in 2 x "
           f"{m * n} elements (bit for bit), {k5_mismatches} against K5 on "
-          f"the unpacked codes -> {'ok' if res['ok'] else 'FAIL'}; kernel "
-          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
-          f"(torch._int_mm, unpacked codes) {lib}, bound "
+          f"the unpacked codes, two calls "
+          f"{'bit-identical' if res['repeatable'] else 'DIFFER'} -> "
+          f"{'ok' if res['ok'] else 'FAIL'}; kernel {res['ms']:.4f} ms back "
+          f"to back, {res['graph_ms']:.4f} ms graph (host "
+          f"{res['host_ms']:.4f} ms a call), plain {res['plain_ms']:.4f} ms, "
+          f"library (torch._int_mm, unpacked codes) {lib}, bound "
           f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}) [{card}]")
     return res
 
@@ -1259,6 +1282,8 @@ def k3_case(m: int, n: int, dtype: str, gen, card: str):
     it = iter(range(1 << 30))
     res["ms"] = graph_ms(lambda: fake_quant(xc[next(it) % len(xc)], scalar,
                                             beta, True))
+    res["host_ms"] = host_ms(lambda: fake_quant(xc[next(it) % len(xc)],
+                                                scalar, beta, True))
     res["plain_ms"] = graph_ms(lambda: fake_quant_ref(
         xc[next(it) % len(xc)], scalar, beta, True))
     # yardstick: the 8-bit per-tensor fake-quant of PyTorch, the same grid
@@ -1272,12 +1297,75 @@ def k3_case(m: int, n: int, dtype: str, gen, card: str):
     res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], res["flops"])
     print(f"[kernels] fake_quant {dtype} M={m} N={n}: {mismatches} "
           f"mismatches in 4 x {m * n} elements (bit for bit) -> "
-          f"{'ok' if res['ok'] else 'FAIL'}; kernel {res['ms']:.4f} ms, "
+          f"{'ok' if res['ok'] else 'FAIL'}; kernel {res['ms']:.4f} ms "
+          f"graph (host {res['host_ms']:.4f} ms a call), "
           f"plain {res['plain_ms']:.4f} ms, library "
           f"(fake_quantize_per_tensor_affine, 8 bits) "
           f"{res['library_ms']:.4f} ms, bound {res['bound_ms'] * 1e3:.2f} us "
           f"({res['bound_by']}) [{card}]")
     return res
+
+
+def k3_forward(cfg, k3, card: str) -> dict:
+    """One CGMQ forward's K3 work (``k3_shapes``: each shape's replayed-
+    graph time by its launches), against its bound and against
+    ``fake_quantize_per_tensor_affine`` on the same shapes; printed with
+    each shape's share of the kernel time and of the bound. Returns the
+    sums."""
+    rows = [((m, n, dt), k3[(m, n, dt)], c)
+            for (m, n, dt), c in k3_shapes(cfg).items()]
+    tot = {key: sum(r[key] * c for _, r, c in rows)
+           for key in ("ms", "plain_ms", "library_ms")}
+    tot["bound_ms"], tot["bound_by"] = bound_ms(
+        sum(r["bytes"] * c for _, r, c in rows),
+        sum(r["flops"] * c for _, r, c in rows))
+    tot["host_ms"] = sum(r["host_ms"] * c for _, r, c in rows) \
+        / sum(c for _, _, c in rows)
+    print(f"[kernels] fake_quant, one CGMQ forward "
+          f"({sum(c for _, _, c in rows)} launches): kernel {tot['ms']:.4f} "
+          f"ms (replayed graphs), bound {tot['bound_ms']:.4f} ms "
+          f"({tot['bound_by']}; {tot['bound_ms'] / tot['ms']:.3f} of it "
+          f"reached), fake_quantize_per_tensor_affine "
+          f"{tot['library_ms']:.4f} ms, host {tot['host_ms']:.4f} ms a call; "
+          f"by shape (launches: share of the kernel time / of the bound, "
+          f"bound fraction): " + "; ".join(
+              f"{m}x{n} {dt} x{c}: {r['ms'] * c / tot['ms']:.3f} / "
+              f"{r['bound_ms'] * c / tot['bound_ms']:.3f}, "
+              f"{r['bound_ms'] / r['ms']:.3f}"
+              for (m, n, dt), r, c in rows) + f" [{card}]")
+    return tot
+
+
+def k6_step(cfg, k6, m_prefill: int, card: str) -> dict:
+    """One mixed decode step's K6 work (its packed GEMMs at M = slots by
+    their launches a forward): back to back, device time (replayed
+    graphs), host time a call, ``torch._int_mm`` on the unpacked codes at
+    M = 32 (back to back and graphs), bound; and the 2-bit mlp_gate at the
+    prefill rows. Printed; returns the step's sums."""
+    rows = [(k6[(SLOTS, k, n, b)], c)
+            for (k, n, b), c in mixed_k4_shapes(cfg).items()]
+    step = {key: sum(r[key] * c for r, c in rows)
+            for key in ("ms", "graph_ms", "plain_ms", "library_ms",
+                        "library_graph_ms")}
+    calls = sum(c for _, c in rows)
+    step["host_ms"] = sum(r["host_ms"] * c for r, c in rows) / calls
+    step["bound_ms"], step["bound_by"] = bound_ms(
+        sum(r["bytes"] * c for r, c in rows),
+        sum(r["flops"] * c for r, c in rows), INT8_OPS_S)
+    pre = k6[(m_prefill, cfg.d_model, cfg.d_ff, 2)]
+    print(f"[kernels] int_matmul_packed, one mixed decode step ({calls} "
+          f"GEMMs at M={SLOTS}, path {rows[0][0]['path']}): device "
+          f"{step['graph_ms']:.4f} ms (replayed graphs), back to back "
+          f"{step['ms']:.4f} ms, host {step['host_ms']:.4f} ms a call, "
+          f"torch._int_mm {step['library_ms']:.4f} ms "
+          f"({step['library_graph_ms']:.4f} graph) at M={INT_MM_MIN_M}, bound "
+          f"{step['bound_ms']:.4f} ms ({step['bound_by']}); prefill 2-bit "
+          f"mlp_gate M={m_prefill}: path {pre['path']}, device "
+          f"{pre['graph_ms']:.4f} ms, back to back {pre['ms']:.4f} ms, "
+          f"torch._int_mm {pre['library_ms']:.4f} ms "
+          f"({pre['library_graph_ms']:.4f} graph), bound "
+          f"{pre['bound_ms'] * 1e3:.2f} us ({pre['bound_by']}) [{card}]")
+    return step
 
 
 def k7_case(case, gen, card: str):
@@ -1424,6 +1512,7 @@ def phase_kernels(cfg, m_prefill: int, card: str):
           for m, n, dt in k3_shapes(cfg)}
     for dt in ("float32", "bfloat16"):
         k3[(3, 101, dt)] = k3_case(3, 101, dt, gen, card)
+    k3_forward(cfg, k3, card)
     k5 = {}
     for m in (SLOTS, m_prefill):
         for k, n in k1_shapes(cfg):
@@ -1435,6 +1524,7 @@ def phase_kernels(cfg, m_prefill: int, card: str):
             k6[(m, k, n, bits)] = k6_case(m, k, n, bits, gen, card)
     for bits in (2, 4):
         k6[(3, 101, 37, bits)] = k6_case(3, 101, 37, bits, gen, card)
+    k6_step(cfg, k6, m_prefill, card)
     k7 = {case[0]: k7_case(case, gen, card) for case in K7_CASES}
     torch.cuda.empty_cache()
     bad = [(r["shape"], r["x_dtype"]) for r in k1.values() if not r["ok"]] \
@@ -2087,9 +2177,10 @@ def phase_profile(eng, prompts, card: str, ticks: int = 5,
         if kind == "other":
             others[e.key[:60]] = others.get(e.key[:60], 0.0) + us / 1e3 / ticks
     busy = sum(by_kind.values())
-    # every pass of K2 (split and combine) and of K1/K4 (stream, combine,
-    # tile and their preparations) is named after its wrapper
-    for name in ("paged_attention", "quant_matmul"):
+    # every pass of K2 (split and combine), of K1/K4 (stream, combine,
+    # tile and their preparations) and of K5/K6 (K6's stream, tile and
+    # preparations) is named after its wrapper
+    for name in ("paged_attention", "quant_matmul", "int_matmul"):
         check(not any(name in k for k in others),
               f"{name} kernels charged to 'other': "
               f"{[k for k in others if name in k]}")
@@ -2560,11 +2651,14 @@ def kernels_line(cfg, m_prefill, k1, k2, k4, k2b, k3, k2c, k5, k6, k7,
     decode shape (K2b over the mixed path's int4 pool); paged_attention_
     window: one K2c launch over a bf16 pool at window 256 + 16 sink tokens,
     positions up to 927; fake_quant: one CGMQ forward's K3 work (its 221
-    launches, each shape times its count); int_matmul: one uniform decode
+    launches, each shape times its count, device time of replayed graphs;
+    ``host_ms`` the wrapper's host time a call); int_matmul: one uniform decode
     step's K5 work (the 155 GEMMs at M = slots, fp32 activations quantized
     in the kernel; library: ``torch._int_mm`` at M = 32, which needs
     M > 16); int_matmul_packed: one mixed decode step's K6 work (its 111
-    packed GEMMs; library: ``torch._int_mm`` on the unpacked codes);
+    packed GEMMs; library: ``torch._int_mm`` on the unpacked codes;
+    ``graph_ms`` and ``library_graph_ms`` device time, ``host_ms`` a call),
+    with ``prefill`` the 2-bit mlp_gate at tinyllama's prefill rows;
     flash_attention: one K7 launch at tinyllama's prefill shape (S 512,
     32 heads over 4 KV heads, hd 64, bf16; library SDPA, the same
     function), its launches those of the uniform serve cell (22 a prefill);
@@ -2638,6 +2732,7 @@ def kernels_line(cfg, m_prefill, k1, k2, k4, k2b, k3, k2c, k5, k6, k7,
                                INT8_OPS_S)
     rows6 = [(k6[(SLOTS, k, n, b)], c)
              for (k, n, b), c in mixed_k4_shapes(cfg).items()]
+    k6p = k6[(m_prefill, d, d_ff, 2)]
     k6_bound, k6_by = bound_ms(sum(r["bytes"] * c for r, c in rows6),
                                sum(r["flops"] * c for r, c in rows6),
                                INT8_OPS_S)
@@ -2708,7 +2803,9 @@ def kernels_line(cfg, m_prefill, k1, k2, k4, k2b, k3, k2c, k5, k6, k7,
          "ms": sum(r["ms"] * c for r, c in rows3),
          "plain_ms": sum(r["plain_ms"] * c for r, c in rows3),
          "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": sum(r["library_ms"] * c for r, c in rows3)},
+         "library_ms": sum(r["library_ms"] * c for r, c in rows3),
+         "host_ms": sum(r["host_ms"] * c for r, c in rows3)
+         / sum(c for _, c in rows3)},
         {"name": "int_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul/quant_matmul.py:278",
@@ -2723,10 +2820,16 @@ def kernels_line(cfg, m_prefill, k1, k2, k4, k2b, k3, k2c, k5, k6, k7,
          "replaces": "src/repro/kernels/quant_matmul/quant_matmul.py:349",
          "launches": int_mixed_launches["int_matmul_packed"],
          "max_abs_err": max(r["max_abs_err"] for r in k6.values()),
-         "ms": sum(r["ms"] * c for r, c in rows6),
-         "plain_ms": sum(r["plain_ms"] * c for r, c in rows6),
+         **{key: sum(r[key] * c for r, c in rows6)
+            for key in ("ms", "graph_ms", "plain_ms", "library_ms",
+                        "library_graph_ms")},
+         "host_ms": sum(r["host_ms"] * c for r, c in rows6)
+         / sum(c for _, c in rows6),
          "bound_ms": k6_bound, "bound_by": k6_by,
-         "library_ms": sum(r["library_ms"] * c for r, c in rows6)},
+         "prefill": {key: k6p[key] for key in (
+             "shape", "path", "max_abs_err", "ms", "graph_ms", "host_ms",
+             "plain_ms", "library_ms", "library_graph_ms", "bound_ms",
+             "bound_by")}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces":

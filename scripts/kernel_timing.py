@@ -1,7 +1,7 @@
 """Time one hand-written kernel of one checkout on one card.
 
-    python3 scripts/kernel_timing.py --kernel k1|k2|k4|k7 [--src DIR]
-                                     [--label NAME]
+    python3 scripts/kernel_timing.py --kernel k1|k2|k3|k4|k6|k7
+                                     [--src DIR] [--label NAME]
 
 ``k2`` (paged decode attention): K2a, K2b over an int4 pool and K2c under
 window 256 with 16 sink tokens at tinyllama's decode shapes, and at
@@ -17,7 +17,12 @@ prefill (tinyllama at 512 rows, gemma2 at 4608, its head left out), and
 the entry point the serving path calls (``quant_matmul_op`` /
 ``quant_matmul_packed_op``) on bf16 activations, the codes taken in turn
 from copies past L2; each decode step's sums by launch count close the
-output.
+output. ``k3`` (fused fake-quant): every shape of a CGMQ forward
+(``chip_smoke.k3_shapes``), summed by launches into the forward. ``k6``
+(int8 x packed 2/4-bit GEMM): the mixed state's packed GEMMs at 8 rows
+(summed into a decode step) and 512, on fp32 activations quantized in the
+kernel, as the serving path calls it, and the 2-bit mlp_gate at 64, 352
+and 4608 rows and with int8 codes in at 512.
 
 The inputs are made as ``chip_smoke.py`` makes them; the wrappers called
 are those of the ``repro_torch`` found in ``--src`` (default: this
@@ -187,15 +192,89 @@ def _qmm_cases(gen, packed: bool):
             name = (f"{cfg.name} M={m} K={k} N={n}"
                     + (f" {bits}-bit" if bits < 8 else ""))
             if decode:
-                _STEP[name] = (cfg.name, count)
+                _STEP[name] = (f"{cfg.name} decode step", count)
             yield name, call, None, 20 if 2.0 * m * n * k < 2e11 else 5
 
 
-# decode GEMM name -> (model, launches per step), filled by _qmm_cases
+def _k3_cases(gen):
+    """Yields (name, call, None, iters) for each K3 shape of a CGMQ forward
+    (``chip_smoke.k3_shapes``) at the [train] phase's scalar 16-bit gate,
+    signed, x taken in turn from copies past L2; notes each shape's
+    launches a forward in ``_STEP``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fake_quant.fake_quant import fake_quant
+
+    cfg = get_config("tinyllama-1.1b")
+    for (m, n, dtype), count in chip_smoke.k3_shapes(cfg).items():
+        x = (torch.randn((m, n), generator=gen, device="cuda") * 1.5).to(
+            getattr(torch, dtype))
+        gate = torch.full((n,), chip_smoke.TRAIN_GATE0, device="cuda")
+        beta = torch.rand((n,), generator=gen, device="cuda") * 1.7 + 0.3
+        copies = [x] + [x.clone() for _ in range(chip_smoke.copies_past_l2(
+            x.numel() * x.element_size()) - 1)]
+        turn = itertools.count()
+
+        def call(c=copies, g=gate, b=beta, t=turn):
+            return fake_quant(c[next(t) % len(c)], g, b, True)
+        name = f"{cfg.name} K3 {m}x{n} {dtype}"
+        _STEP[name] = (f"{cfg.name} CGMQ forward", count)
+        yield name, call, None, 20
+
+
+def _k6_cases(gen):
+    """Yields (name, call, None, iters) for each K6 GEMM of the mixed state
+    (``chip_smoke.mixed_k4_shapes``) at the decode rows (8) and a prefill
+    (512 rows), as the serving path calls it: fp32 activations quantized
+    in the kernel on an 8-bit grid, the packed codes taken in turn from
+    copies past L2; notes each decode GEMM's launches a step in
+    ``_STEP``. Then the 2-bit mlp_gate at 64, 352 and 4608 rows (one tile
+    row, one wave of 132 tiles, twelve waves), and at 512 rows with int8
+    activation codes in (no quantizing pass before the tiles)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_matmul.quant_matmul import \
+        int_matmul_packed
+    from repro_torch.quant.pack import pack_codes
+
+    cfg = get_config("tinyllama-1.1b")
+    mlp_gate = (cfg.d_model, cfg.d_ff, 2)
+    cases = [(m, key, count, m == chip_smoke.SLOTS, True)
+             for m in (chip_smoke.SLOTS, 512)
+             for key, count in chip_smoke.mixed_k4_shapes(cfg).items()]
+    cases += [(m, mlp_gate, 0, False, True) for m in (64, 352, 4608)]
+    cases += [(512, mlp_gate, 0, False, False)]
+    for m, (k, n, bits), count, decode, quant in cases:
+        x, grid, qx, rowsum, codes, es, eb, cst = chip_smoke._int_operands(
+            m, k, n, bits, gen)
+        packed = pack_codes(codes, bits)
+        copies = [packed] + [packed.clone() for _ in range(
+            chip_smoke.copies_past_l2(packed.numel()) - 1)]
+        turn = itertools.count()
+        if quant:
+            def call(x=x, c=copies, t=turn, v=(es, eb, cst), a=(grid, 8),
+                     bits=bits, k=k):
+                return int_matmul_packed(x, c[next(t) % len(c)], v[0], v[1],
+                                         None, v[2], bits=bits, k=k, act=a)
+        else:
+            def call(x=qx, c=copies, t=turn, v=(es, eb, cst), r=rowsum,
+                     bits=bits, k=k):
+                return int_matmul_packed(x, c[next(t) % len(c)], v[0], v[1],
+                                         r, v[2], bits=bits, k=k)
+        name = (f"{cfg.name} K6 M={m} K={k} N={n} {bits}-bit"
+                + ("" if quant else " int8 x"))
+        if decode:
+            _STEP[name] = (f"{cfg.name} mixed decode step", count)
+        yield name, call, None, 20
+
+
+# decode GEMM name -> (model, launches per step), filled by _qmm_cases,
+# _k3_cases (a CGMQ forward's shapes) and _k6_cases
 _STEP: dict[str, tuple[str, int]] = {}
 
 CASES = {"k1": lambda gen: _qmm_cases(gen, False), "k2": _k2_cases,
-         "k4": lambda gen: _qmm_cases(gen, True), "k7": _k7_cases}
+         "k3": _k3_cases, "k4": lambda gen: _qmm_cases(gen, True),
+         "k6": _k6_cases, "k7": _k7_cases}
 
 
 def main() -> int:
@@ -242,7 +321,7 @@ def main() -> int:
             step["graph_ms"] += count * row["graph_ms"]
             step["launches"] += count
     for model, step in steps.items():
-        print(f"[timing] {args.label} {model} decode step, "
+        print(f"[timing] {args.label} {model}, "
               f"{step['launches']} launches: back to back {step['ms']:.4f} "
               f"ms, replayed graph {step['graph_ms']:.4f} ms [{card}]")
     print(json.dumps({"card": card, "kernel": args.kernel,

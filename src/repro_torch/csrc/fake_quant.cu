@@ -33,10 +33,12 @@
 //     through torch.maximum/minimum.
 //
 // What bounds it on an H100: it reads each element once and writes it once
-// with ~10 FLOPs between, far below the ~20 FLOP/byte fp32 ridge: bytes.
-// The simple design (4- or 2-byte accesses, no vector loads) leaves
-// bandwidth on the table at narrow N; wider loads and a fused backward are
-// left for a later change.
+// with ~10 FLOPs between, far below the ~20 FLOP/byte fp32 ridge: bytes,
+// by that count. Measured, the issue of its exact arithmetic (the
+// per-element IEEE divide with its slow-path check most of all) holds it
+// back at the small and bf16 shapes, and HBM at the large ones: 16-byte
+// accesses, 2-D blocks and a grid of one wave made a CGMQ forward no
+// faster (PERF.md, Findings), so the design stays one element an access.
 
 #include <cstdint>
 #include <cuda_bf16.h>

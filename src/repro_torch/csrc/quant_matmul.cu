@@ -93,29 +93,6 @@
 
 namespace {
 
-// Code (gk, gn) as an int: an int8 code (BITS = 8), or the centered
-// BITS-bit field of a packed byte (BITS = 2, 4). K6's unpack loader.
-template <int BITS>
-__device__ __forceinline__ int load_code_int(const void* codes, int gk,
-                                             int gn, int N) {
-  if constexpr (BITS == 8) {
-    return static_cast<const int8_t*>(codes)[(size_t)gk * N + gn];
-  } else {
-    constexpr int PER = 8 / BITS;
-    const unsigned byte =
-        static_cast<const uint8_t*>(codes)[(size_t)(gk / PER) * N + gn];
-    const int field = (byte >> ((gk % PER) * BITS)) & ((1 << BITS) - 1);
-    return field - (1 << (BITS - 1));
-  }
-}
-
-// M at or below which K5/K6 take their 8-row tile.
-constexpr int kSmallM = 8;
-
-dim3 grid_of(int M, int N, int bm, int bn) {
-  return dim3((N + bn - 1) / bn, (M + bm - 1) / bm);
-}
-
 // Codes of byte j of `w` (in the low byte of 2^23) and the offset that
 // leaves the code: 2^23 + 128 for int8 codes whose sign bit was flipped,
 // 2^23 + 2^(b-1) for b-bit fields. Exact.
@@ -919,34 +896,109 @@ int launch_fused(const void* x, int x_bf16, const void* codes,
 // Replaces: src/repro/kernels/quant_matmul/quant_matmul.py:
 // int_matmul_pallas (kernel body _int_kernel) and int_matmul_packed_pallas
 // (_int_packed_kernel). Those carry an int32 VMEM accumulator across a
-// sequential K grid axis; here one thread block owns a BM x BN output tile,
-// loops over K itself and keeps TM x TN int32 sums in registers.
+// sequential K grid axis.
 //
 // Two loaders for the activation: qx as int8 codes with rowsum given (the
-// TPU kernel's contract), or (QUANT) fp32 x quantized in the loader on the
-// grid [alpha, beta, s] with offset 2^(bits-1), exactly as
+// TPU kernel's contract), or (QUANT) fp32 x quantized on the grid
+// [alpha, beta, s] with offset 2^(bits-1), exactly as
 // core.quantizer.quantize_to_int does it (clip, subtract, IEEE divide,
-// round half to even), the row sums of the codes taken with the same
-// __dp4a as the products. The serving path takes the second: one launch
-// per GEMM, no int8 copy of x in device memory.
+// round half to even; quant_act), with the row sums of the codes taken in
+// the kernel. Every sum is an int32 sum of integers, exact in any order, and
+// every epilogue is rounded explicitly (__fadd_rn/__fmul_rn, no FMA
+// contraction) in the plain version's order (int_epilogue): K5 and K6 are
+// bit-equal to their plain versions, and K6 on pack(c) to K5 on c, whatever
+// the split or tile.
 //
-// What bounds them on an H100: at decode (M = 8 slots) the bytes of the
-// weight codes, as for K1/K4; at prefill (M up to 512) the int8 operations.
-// What the design does about it:
-//   * the products are __dp4a: four int8 pairs summed into an int32 per
-//     instruction, exact in any order, so the accumulator equals the plain
-//     version's fp64-summed codes bit for bit, and the epilogue is rounded
-//     explicitly (__fadd_rn/__fmul_rn, no FMA contraction) in the plain
-//     version's order: K5 is bit-equal to it, and K6 on pack(c) to K5 on c;
-//   * both operands are staged in shared memory as 32-bit words of four
-//     consecutive K codes (x transposed to K-major, codes gathered down a
-//     column), so each inner step is two shared loads per dp4a pair;
-//   * the K4 tile shapes: an 8-row tile at M <= 8, 64 x 64 with 4 x 4
-//     register tiles above;
-//   * ragged M/N/K edges and pack padding are zeroed on load (a zero code
-//     adds nothing to a sum), and no packed row >= ceil(K/per) is read.
-// The codes are still read a byte at a time; tensor-core IMMA/wgmma, TMA
-// and split-K at M = 8 are later work.
+// K5 (int8 codes): one thread block a BM x BN output tile
+// (8 x 32 at M <= 8, 64 x 64 with 4 x 4 register tiles above), both
+// operands staged in shared memory as 32-bit words of four consecutive K
+// codes, __dp4a products; ragged edges zeroed on load.
+//
+// K6 (packed 2/4-bit codes): two paths, chosen by the wrapper from (M, N, K)
+// alone (kernels/quant_matmul/quant_matmul.py: kernel_path, int_split_plan).
+//
+// istream:: (decode, M <= 8) bound by the bytes of the packed codes: a
+//   split-K stream with K1/K4's structure (stream:: above), in one launch:
+//   * a (N / 128, splits) grid of 128-thread blocks; a split is a whole
+//     number of groups of 4 K rows (one packed row at 2 bits, two at 4);
+//     thread (slice, column group) owns 16 columns and groups slice,
+//     slice + 16, ... of its split, copied 16 bytes at a time (cp.async)
+//     into its own ring of 8 groups in shared memory, 7 in flight;
+//   * activation row r of a group travels in the ring of thread (slice,
+//     r) beside the codes (one 16-byte copy of fp32, 4 bytes of int8);
+//     that thread turns it into one 32-bit word of 4 K codes (the fp32
+//     loader quantizes them there) and adds it to row r's sum, and the 8
+//     threads of a slice share their rows' words by shuffles: every
+//     activation is loaded and quantized once a block, with no pass over
+//     x before the codes stream;
+//   * the packed fields are widened in registers, exactly, to their biased
+//     unsigned codes: shifted and masked 4 bytes (4 columns) at a time, then
+//     a 4 x 4 byte transpose (8 byte permutes) leaves one word of 4
+//     consecutive K codes a column (widen4); dp4a.s32.u32 multiplies them
+//     with the signed activation words, and the bias comes off once at the
+//     end: sum(a (c + 2^(b-1))) - 2^(b-1) sum(a), exact in int32. At M 8 and
+//     2 bits a byte costs ~12 instructions (8 dp4a): issue-bound at about
+//     the bytes bound, the same finding as K4's FMA stream; mma.sync's
+//     m16n8k32 would cut the dp4a but needs the codes in fragment order (a
+//     shuffle a fragment), and a decode step is set by the per-GEMM
+//     latency of its 111 small GEMMs, not by either;
+//   * one launch: each block adds its column tile's partial sums (and,
+//     with the fp32 loader, its row sums) into the wrapper's workspace with
+//     atomics, 4 columns an atomic (red.global.add.v4.f32: the sums are
+//     integers below 2^24 for K <= 16384, so fp32 adds them exactly in any
+//     order), then takes a ticket from its tile's counter; the last block
+//     of a tile to arrive writes the epilogue and zeroes the tile's sums,
+//     row sums and counter, so the workspace is zero again for the next
+//     call (the same bits every call). One split writes the epilogue
+//     directly. Per-element int32 atomics cost more than the rest of a
+//     mid-size GEMM at M 8 (1024 a block, the splits of a tile on the same
+//     addresses).
+//   Measured on an H100: at M 8 (168-198 registers, 2 blocks an SM) the
+//   stream is latency-bound, not bytes-bound: 7.7-15 us a GEMM of the mixed
+//   decode step, the 2-bit head at 0.14 of its bytes bound.
+//
+// itile:: (prefill, M > 8) bound by int8 operations: tensor cores through
+//   wgmma (m64n128k32, s32 accumulators), K1/K4's tile skeleton (tile::):
+//   * 384 threads a 128 x 128 output tile: two consumer warpgroups of 64
+//     rows, one producer warpgroup; K steps of 128 codes (one 128-byte
+//     swizzled row of int8);
+//   * wgmma takes 8-bit operands K-major only: A, the activation codes
+//     (M, K), is K-major as stored, loaded by TMA (128-byte swizzle); the
+//     packed codes are N-contiguous, so the producer's first thread loads
+//     the raw packed tile by TMA (a ring of 4, 3 ahead) and all 128
+//     producer threads widen it, thread t column t, into the K-major,
+//     128-byte-swizzled int8 B tile: the `per` codes of one byte are
+//     consecutive in K, so 16/per bytes of a column widen into one 16-byte
+//     chunk of its row (the same byte permutes, the bias taken off
+//     bytewise), one 16-byte store each;
+//   * the fp32 loader quantizes x first (prep: a block a row) into the
+//     wrapper's workspace as int8 rows padded to 16 bytes, with their int32
+//     row sums; int8 x whose rows TMA cannot take is copied there the same
+//     way; packed rows not 16-byte aligned go through tile::pad_codes;
+//   * the epilogue stages the fp32 tile in shared memory and writes it a
+//     row at a time in 16-byte stores (written straight from the wgmma
+//     fragments, half of every 32-byte sector would go to waste);
+//   * ragged M/N/K: TMA zero-fills past M and K (a zero activation adds
+//     nothing, whatever the code), the epilogue masks its stores, and no
+//     packed row >= ceil(K/per) is read.
+
+struct int_matmul_packed_kernel;
+
+// The activation code of fp32 v on the grid [alpha, beta, s]: clip,
+// subtract, IEEE divide, round half to even, take off the offset.
+__device__ __forceinline__ int quant_act(float v, float alpha, float beta,
+                                         float s, int offset) {
+  const float c = fminf(fmaxf(v, alpha), beta);
+  return static_cast<int>(rintf(__fdiv_rn(__fsub_rn(c, alpha), s))) - offset;
+}
+
+// The plain version's epilogue, rounded as it rounds it.
+__device__ __forceinline__ float int_epilogue(int acc, float r, float es,
+                                              float eb, float c) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(static_cast<float>(acc), es),
+                             __fmul_rn(r, eb)),
+                   c);
+}
 
 // Activation code (gm, gk) at flat index idx.
 template <bool QUANT>
@@ -954,22 +1006,23 @@ __device__ __forceinline__ int load_act(const void* x, size_t idx,
                                         float alpha, float beta, float s,
                                         int offset) {
   if constexpr (QUANT) {
-    const float v = static_cast<const float*>(x)[idx];
-    const float c = fminf(fmaxf(v, alpha), beta);
-    return static_cast<int>(rintf(__fdiv_rn(__fsub_rn(c, alpha), s))) -
-           offset;
+    return quant_act(static_cast<const float*>(x)[idx], alpha, beta, s,
+                     offset);
   } else {
     return static_cast<const int8_t*>(x)[idx];
   }
 }
 
-template <int BITS, bool QUANT, int BM, int BN, int BK, int TM, int TN>
-__device__ __forceinline__ void int_gemm_tile(
-    const void* __restrict__ x, const void* __restrict__ codes,
-    const float* __restrict__ eff_scale, const float* __restrict__ eff_bias,
-    const float* __restrict__ rowsum, const float* __restrict__ cst,
-    const float* __restrict__ grid, int offset, float* __restrict__ out,
-    int M, int N, int K) {
+template <bool QUANT, int BM, int BN, int BK, int TM, int TN>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+int_matmul_kernel(const void* __restrict__ x,
+                  const int8_t* __restrict__ codes,
+                  const float* __restrict__ eff_scale,
+                  const float* __restrict__ eff_bias,
+                  const float* __restrict__ rowsum,
+                  const float* __restrict__ cst,
+                  const float* __restrict__ grid, int offset,
+                  float* __restrict__ out, int M, int N, int K) {
   static_assert(BK % 4 == 0, "K tile must be whole 4-code words");
   constexpr int KQ = BK / 4;
   constexpr int RT = BM / TM;
@@ -1023,9 +1076,7 @@ __device__ __forceinline__ void int_gemm_tile(
       for (int j = 0; j < 4; ++j) {
         const int gk = k0 + 4 * q + j;
         if (gk < K && gn < N)
-          word |= (static_cast<unsigned>(load_code_int<BITS>(codes, gk, gn,
-                                                             N)) &
-                   0xffu)
+          word |= (static_cast<unsigned>(codes[(size_t)gk * N + gn]) & 0xffu)
                   << (8 * j);
       }
       cs[q][c] = static_cast<int>(word);
@@ -1063,93 +1114,861 @@ __device__ __forceinline__ void int_gemm_tile(
       const int n = n0 + tx + j * CT;
       if (n < N)
         out[(size_t)m * N + n] =
-            __fadd_rn(__fadd_rn(__fmul_rn(static_cast<float>(acc[i][j]),
-                                          eff_scale[n]),
-                                __fmul_rn(r, eff_bias[n])),
-                      cst[n]);
+            int_epilogue(acc[i][j], r, eff_scale[n], eff_bias[n], cst[n]);
     }
   }
 }
 
-template <bool QUANT, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-int_matmul_kernel(const void* __restrict__ x,
-                  const int8_t* __restrict__ codes,
-                  const float* __restrict__ eff_scale,
-                  const float* __restrict__ eff_bias,
-                  const float* __restrict__ rowsum,
-                  const float* __restrict__ cst,
-                  const float* __restrict__ grid, int offset,
-                  float* __restrict__ out, int M, int N, int K) {
-  int_gemm_tile<8, QUANT, BM, BN, BK, TM, TN>(
-      x, codes, eff_scale, eff_bias, rowsum, cst, grid, offset, out, M, N, K);
+// K5's tiles: 8 x 32 with a 256-deep K tile at decode (one output a
+// thread), 64 x 64 x 64 with 4 x 4 register tiles above.
+template <bool QUANT>
+void launch_k5(const void* x, const int8_t* codes, const float* eff_scale,
+               const float* eff_bias, const float* rowsum, const float* cst,
+               const float* grid, int offset, float* out, int M, int N,
+               int K, cudaStream_t stream) {
+  if (M <= 8) {
+    const dim3 grd((N + 31) / 32, (M + 7) / 8);
+    int_matmul_kernel<QUANT, 8, 32, 256, 1, 1><<<grd, 8 * 32, 0, stream>>>(
+        x, codes, eff_scale, eff_bias, rowsum, cst, grid, offset, out, M, N,
+        K);
+  } else {
+    const dim3 grd((N + 63) / 64, (M + 63) / 64);
+    int_matmul_kernel<QUANT, 64, 64, 64, 4, 4><<<grd, 16 * 16, 0, stream>>>(
+        x, codes, eff_scale, eff_bias, rowsum, cst, grid, offset, out, M, N,
+        K);
+  }
 }
 
-template <int BITS, bool QUANT, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-int_matmul_packed_kernel(const void* __restrict__ x,
-                         const uint8_t* __restrict__ packed,
-                         const float* __restrict__ eff_scale,
-                         const float* __restrict__ eff_bias,
-                         const float* __restrict__ rowsum,
-                         const float* __restrict__ cst,
-                         const float* __restrict__ grid, int offset,
-                         float* __restrict__ out, int M, int N, int K) {
-  int_gemm_tile<BITS, QUANT, BM, BN, BK, TM, TN>(
-      x, packed, eff_scale, eff_bias, rowsum, cst, grid, offset, out, M, N,
-      K);
+// d = c + the dot product of the four signed bytes of a (activation codes)
+// with the four unsigned bytes of b (biased weight codes).
+__device__ __forceinline__ int dp4a_su(uint32_t a, uint32_t b, int c) {
+  int d;
+  asm("dp4a.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
-// The int kernels' tiles: 8 x 32 with a 256-deep K tile at decode (one
-// output a thread), 64 x 64 x 64 with 4 x 4 register tiles above.
-template <int BITS, bool QUANT>
-void launch_int(const void* x, const void* codes, const float* eff_scale,
-                const float* eff_bias, const float* rowsum, const float* cst,
-                const float* grid, int offset, float* out, int M, int N,
-                int K, cudaStream_t stream) {
-  if (M <= kSmallM) {
-    const dim3 grd = grid_of(M, N, 8, 32);
-    if constexpr (BITS == 8) {
-      int_matmul_kernel<QUANT, 8, 32, 256, 1, 1><<<grd, 8 * 32, 0, stream>>>(
-          x, static_cast<const int8_t*>(codes), eff_scale, eff_bias, rowsum,
-          cst, grid, offset, out, M, N, K);
+// The biased codes of 4 consecutive K rows of 4 columns. Byte c of w0 is
+// column c's byte of a packed row: at 2 bits the group's one row (K rows
+// 0-3 in bits 0-1, 2-3, 4-5, 6-7; w1 unused), at 4 bits the group's first
+// row (K rows 0-1 in its nibbles) and w1 the second (K rows 2-3). f_j
+// holds K row j of the 4 columns (byte c: column c); the 4 x 4 byte
+// transpose leaves col[c] = column c's K rows 0..3 in bytes 0..3.
+template <int BITS>
+__device__ __forceinline__ void widen4(uint32_t w0, uint32_t w1,
+                                       uint32_t (&col)[4]) {
+  uint32_t f0, f1, f2, f3;
+  if constexpr (BITS == 2) {
+    f0 = w0 & 0x03030303u;
+    f1 = (w0 >> 2) & 0x03030303u;
+    f2 = (w0 >> 4) & 0x03030303u;
+    f3 = (w0 >> 6) & 0x03030303u;
+  } else {
+    f0 = w0 & 0x0F0F0F0Fu;
+    f1 = (w0 >> 4) & 0x0F0F0F0Fu;
+    f2 = w1 & 0x0F0F0F0Fu;
+    f3 = (w1 >> 4) & 0x0F0F0F0Fu;
+  }
+  const uint32_t t0 = __byte_perm(f0, f1, 0x5140);  // f0.0 f1.0 f0.1 f1.1
+  const uint32_t t1 = __byte_perm(f2, f3, 0x5140);  // f2.0 f3.0 f2.1 f3.1
+  const uint32_t t2 = __byte_perm(f0, f1, 0x7362);  // f0.2 f1.2 f0.3 f1.3
+  const uint32_t t3 = __byte_perm(f2, f3, 0x7362);  // f2.2 f3.2 f2.3 f3.3
+  col[0] = __byte_perm(t0, t1, 0x5410);
+  col[1] = __byte_perm(t0, t1, 0x7632);
+  col[2] = __byte_perm(t2, t3, 0x5410);
+  col[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// ---------------------------------------------------------------------------
+// istream: K6's decode path
+// ---------------------------------------------------------------------------
+namespace istream {
+
+constexpr int CG = 8;          // column groups of a block (and x rows)
+constexpr int COLS = 16;       // columns a thread owns: one 16-byte row load
+constexpr int BN = CG * COLS;  // 128 columns a block
+constexpr int KS = 16;         // K slices of a block
+constexpr int NT = CG * KS;    // 128 threads
+constexpr int GROUP = 4;       // K rows of a group: one packed row at 2 bits
+constexpr int DEPTH = 8;       // groups a thread has in flight + 1
+constexpr int WS_ROWS = 8;     // rows of a column tile's sums in the workspace
+
+// Largest K whose int32 sums the workspace adds exactly in fp32: every
+// partial and total sum of a column is an integer below 2^24 (|a c| <=
+// 128 x 8 at 4 bits), so the atomic fp32 adds are exact in any order.
+constexpr int MAX_SPLIT_K = 16384;
+
+// The workspace of one launch over `tiles` column tiles, 4-byte words:
+// sums [tiles][WS_ROWS][BN] fp32, row sums [tiles][WS_ROWS] int32,
+// arrival counters [tiles] int32; zero between calls.
+long long ws_bytes_for(long long tiles) {
+  return 4 * tiles * (1 + WS_ROWS + WS_ROWS * BN);
+}
+
+// Adds 4 fp32 to 4 consecutive words of global memory (16-byte aligned) in
+// one atomic vector operation.
+__device__ __forceinline__ void red_add_v4(float* p, const float (&v)[4]) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
+// Shared memory of a block: each thread's ring of DEPTH groups, a group
+// its L 16-byte code loads and one 16-byte slot of activations (after the
+// walk the ring holds the warps' sums), then the warps' row sums [4][CG],
+// the block's [CG] and the last-block flag.
+template <int MR, int BITS>
+struct Smem {
+  static constexpr int L = GROUP * BITS / 8;   // 16-byte code loads a group
+  static constexpr int LX = L + 1;             // and the activations' slot
+  static constexpr int RING = DEPTH * LX * NT;  // 16-byte slots
+  static constexpr int RED = NT / 32 * MR * BN / 4;
+  static constexpr int X_OFF = 16 * (RING > RED ? RING : RED);
+  static constexpr int BYTES = X_OFF + 5 * CG * 4 + 16;
+};
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Activations of row m, K rows k0 .. k0 + 3 (zeros past K), loaded one
+// element at a time into a 16-byte slot: fp32 (QUANT) as 4 floats, int8
+// as the slot's first 4 bytes. For rows that are not aligned for one
+// asynchronous copy.
+template <bool QUANT>
+__device__ __forceinline__ uint4 load_x_slow(const void* x, int m, int k0,
+                                             int K) {
+  const size_t at = (size_t)m * K + k0;
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (k0 + e >= K) continue;
+    if constexpr (QUANT)
+      w[e] = __float_as_uint(static_cast<const float*>(x)[at + e]);
+    else
+      w[0] |= (static_cast<uint32_t>(static_cast<const uint8_t*>(x)[at + e]))
+              << (8 * e);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One activation word from its slot: K rows k0 .. k0 + 3 of one row as 4
+// signed codes (byte e: K row k0 + e), the fp32 loader quantizing them;
+// zeros past K.
+template <bool QUANT>
+__device__ __forceinline__ uint32_t act_word(uint4 v, int k0, int K,
+                                             float alpha, float beta, float s,
+                                             int offset) {
+  if constexpr (!QUANT) {
+    return v.x;
+  } else {
+    const float f[4] = {__uint_as_float(v.x), __uint_as_float(v.y),
+                        __uint_as_float(v.z), __uint_as_float(v.w)};
+    uint32_t word = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (k0 + e < K)
+        word |= (static_cast<uint32_t>(quant_act(f[e], alpha, beta, s,
+                                                 offset)) &
+                 0xffu)
+                << (8 * e);
+    return word;
+  }
+}
+
+// acc[m][c] += a[m][k] * (code[k][c] + 2^(b-1)) over the 4 K rows of one
+// group; `raw` holds the group's 16-byte row loads (one row of 2-bit
+// bytes, two of 4-bit), xw the group's activation words, one a row.
+template <int MR, int BITS>
+__device__ __forceinline__ void accumulate(int (&acc)[MR][COLS],
+                                           const uint4 (&raw)[GROUP * BITS /
+                                                              8],
+                                           const uint32_t (&xw)[MR]) {
+  const uint32_t a[4] = {raw[0].x, raw[0].y, raw[0].z, raw[0].w};
+  uint32_t b[4] = {0u, 0u, 0u, 0u};
+  if constexpr (BITS == 4) {
+    b[0] = raw[1].x, b[1] = raw[1].y, b[2] = raw[1].z, b[3] = raw[1].w;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t col[4];
+    widen4<BITS>(a[q], b[q], col);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int m = 0; m < MR; ++m)
+        acc[m][4 * q + c] = dp4a_su(xw[m], col[c], acc[m][4 * q + c]);
+  }
+}
+
+// One (column tile, split) of the stream: see the header. Thread (slice,
+// cg) streams its groups' codes and, for activation row cg, their
+// activations through its ring; the 8 threads of a slice share their rows'
+// words by shuffles, so every activation is loaded and quantized once a
+// block, a group at a time, with the codes' loads in flight.
+template <class TAG, int MR, int BITS, bool QUANT>
+__global__ void __launch_bounds__(NT)
+    kernel(const void* __restrict__ x, const uint8_t* __restrict__ codes,
+           const float* __restrict__ eff_scale,
+           const float* __restrict__ eff_bias,
+           const float* __restrict__ rowsum, const float* __restrict__ cst,
+           const float* __restrict__ grid, int offset,
+           float* __restrict__ out, int* __restrict__ ws, int M, int N,
+           int K, int chunk_groups, int vec, int x_vec) {
+  using S = Smem<MR, BITS>;
+  constexpr int PER = 8 / BITS, L = S::L, LX = S::LX;
+  constexpr int BIAS = 1 << (BITS - 1);
+  extern __shared__ uint4 smem[];
+  uint4* const ring = smem;
+  int* const rsw = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(smem) +
+                                          S::X_OFF);
+  int* const rsb = rsw + 4 * CG;
+  int* const last = rsb + CG;
+
+  const int tid = threadIdx.x;
+  const int cg = tid % CG, slice = tid / CG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int tile_n = blockIdx.x;
+  const int n0 = tile_n * BN, col = n0 + cg * COLS;
+  const int groups = (K + GROUP - 1) / GROUP;
+  const int g_begin = blockIdx.y * chunk_groups;
+  const int g_end = min(groups, g_begin + chunk_groups);
+  const int rows = (K + PER - 1) / PER;  // stored (packed) rows
+  const bool xrow = cg < M;              // this thread loads row cg of x
+
+  int acc[MR][COLS];
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) acc[m][c] = 0;
+
+  // group g into ring stage `st` (slot (st LX + l) NT + tid): its packed
+  // rows by async 16-byte copies, zeros past the split, K or N, unaligned
+  // rows byte by byte; then row cg's activations of the group (16 bytes of
+  // fp32, 4 of int8), zeros past the split or for a row past M. One commit
+  // group a call, empty or not
+  auto issue = [&](int g, int st) {
+    const bool live = g < g_end;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int row = g * L + l;
+      const bool ok = live && row < rows && col < N;
+      uint4* slot = &ring[(st * LX + l) * NT + tid];
+      if (vec)
+        stream::cp_async16(smem_u32(slot),
+                           ok ? codes + (size_t)row * N + col : codes,
+                           ok ? 16 : 0);
+      else
+        *slot = ok ? stream::load_row_bytes(codes, row, N, col)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+    const bool ok = live && xrow;
+    uint4* slot = &ring[(st * LX + L) * NT + tid];
+    const size_t at = (size_t)cg * K + (size_t)g * GROUP;
+    if (x_vec) {
+      // K a multiple of 4: the group lies inside K
+      if constexpr (QUANT)
+        stream::cp_async16(smem_u32(slot),
+                           ok ? static_cast<const float*>(x) + at : x,
+                           ok ? 16 : 0);
+      else
+        cp_async4(smem_u32(slot), ok ? static_cast<const int8_t*>(x) + at : x,
+                  ok ? 4 : 0);
     } else {
-      int_matmul_packed_kernel<BITS, QUANT, 8, 32, 256, 1, 1>
-          <<<grd, 8 * 32, 0, stream>>>(
-              x, static_cast<const uint8_t*>(codes), eff_scale, eff_bias,
-              rowsum, cst, grid, offset, out, M, N, K);
+      *slot = ok ? load_x_slow<QUANT>(x, cg, g * GROUP, K)
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+    stream::cp_async_commit();
+  };
+#pragma unroll
+  for (int d = 0; d < DEPTH - 1; ++d) issue(g_begin + slice + d * KS, d);
+
+  float alpha = 0.f, beta = 0.f, s = 1.f;
+  if constexpr (QUANT) {
+    alpha = grid[0];
+    beta = grid[1];
+    s = grid[2];
+  }
+  int rs = 0;  // row cg's sum of the codes of this thread's groups
+  // step j: group g_begin + slice + 16 j, while the next DEPTH - 1 steps'
+  // groups are in flight; every lane runs every step (a group past the
+  // split adds zeros), so the shuffles see the whole warp
+  const int J = (g_end - g_begin + KS - 1) / KS;
+  for (int j = 0; j < J; ++j) {
+    const int g = g_begin + slice + j * KS;
+    const int st = j % DEPTH;
+    issue(g + (DEPTH - 1) * KS, (j + DEPTH - 1) % DEPTH);
+    stream::cp_async_wait<DEPTH - 1>();  // step j's group has landed
+    uint4 raw[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) raw[l] = ring[(st * LX + l) * NT + tid];
+    const uint32_t word =
+        g < g_end && xrow
+            ? act_word<QUANT>(ring[(st * LX + L) * NT + tid], g * GROUP, K,
+                              alpha, beta, s, offset)
+            : 0u;
+    rs = __dp4a(static_cast<int>(word), 0x01010101, rs);
+    uint32_t xw[MR];
+#pragma unroll
+    for (int m = 0; m < MR; ++m)
+      xw[m] = __shfl_sync(0xffffffffu, word, (lane & ~(CG - 1)) | m);
+    accumulate<MR, BITS>(acc, raw, xw);
+  }
+  stream::cp_async_wait<0>();
+  __syncthreads();  // every ring is drained: it holds the sums next
+  int(*red)[MR][BN] = reinterpret_cast<int(*)[MR][BN]>(ring);
+
+  // the 16 slices' sums: slices 4w .. 4w+3 sit in lanes 8 apart of warp w
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      int v = acc[m][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      acc[m][c] = v;
+    }
+  rs += __shfl_xor_sync(0xffffffffu, rs, 8);
+  rs += __shfl_xor_sync(0xffffffffu, rs, 16);
+  if (lane < CG) {
+#pragma unroll
+    for (int m = 0; m < MR; ++m)
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) red[warp][m][lane * COLS + c] = acc[m][c];
+    rsw[warp * CG + lane] = rs;
+  }
+  __syncthreads();
+  if (tid < CG)
+    rsb[tid] = rsw[tid] + rsw[CG + tid] + rsw[2 * CG + tid] + rsw[3 * CG + tid];
+  __syncthreads();
+
+  // this split's exact sums, the bias taken off: direct to the epilogue
+  // with one split, else into the workspace, 4 columns an atomic
+  const int rsum = tid < CG ? rsb[tid] : 0;
+  if (gridDim.y == 1) {
+    for (int i = tid; i < MR * BN; i += NT) {
+      const int m = i / BN, c = i % BN, n = n0 + c;
+      if (m >= M || n >= N) continue;
+      const int v = red[0][m][c] + red[1][m][c] + red[2][m][c] +
+                    red[3][m][c] - BIAS * rsb[m];
+      const float r = QUANT ? static_cast<float>(rsb[m]) : rowsum[m];
+      out[(size_t)m * N + n] =
+          int_epilogue(v, r, eff_scale[n], eff_bias[n], cst[n]);
+    }
+    return;
+  }
+  float* const acc_ws = reinterpret_cast<float*>(ws);
+  int* const rs_ws = ws + (size_t)gridDim.x * WS_ROWS * BN;
+  int* const cnt = rs_ws + (size_t)gridDim.x * WS_ROWS;
+  for (int i = tid; i < MR * BN / 4; i += NT) {
+    const int m = i / (BN / 4), c = 4 * (i % (BN / 4));
+    if (m >= M) continue;
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = n0 + c + e < N
+                 ? static_cast<float>(red[0][m][c + e] + red[1][m][c + e] +
+                                      red[2][m][c + e] + red[3][m][c + e] -
+                                      BIAS * rsb[m])
+                 : 0.f;
+    red_add_v4(&acc_ws[((size_t)tile_n * WS_ROWS + m) * BN + c], v);
+  }
+  if (QUANT && tid < M) atomicAdd(&rs_ws[tile_n * WS_ROWS + tid], rsum);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *last = atomicAdd(&cnt[tile_n], 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (!*last) return;
+  // the tile's last block: every split's sums are in; the epilogue, then
+  // the tile's slice of the workspace back to zero
+  __threadfence();
+  for (int i = tid; i < MR * BN / 4; i += NT) {
+    const int m = i / (BN / 4), c = 4 * (i % (BN / 4));
+    if (m >= M) continue;
+    float4* const p = reinterpret_cast<float4*>(
+        &acc_ws[((size_t)tile_n * WS_ROWS + m) * BN + c]);
+    const float4 v4 = __ldcg(p);
+    *p = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+    const float r = QUANT
+                        ? static_cast<float>(__ldcg(&rs_ws[tile_n * WS_ROWS + m]))
+                        : rowsum[m];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = n0 + c + e;
+      if (n < N)
+        out[(size_t)m * N + n] = int_epilogue(static_cast<int>(v[e]), r,
+                                              eff_scale[n], eff_bias[n],
+                                              cst[n]);
+    }
+  }
+  __syncthreads();
+  if (QUANT && tid < M) rs_ws[tile_n * WS_ROWS + tid] = 0;
+  if (tid == 0) cnt[tile_n] = 0;
+}
+
+template <int MR, int BITS, bool QUANT>
+cudaError_t launch_mr(dim3 grid_dim, const void* x, const uint8_t* codes,
+                      const float* es, const float* eb, const float* rowsum,
+                      const float* cst, const float* grid, int offset,
+                      float* out, int* ws, int M, int N, int K,
+                      int chunk_groups, int vec, int x_vec,
+                      cudaStream_t stream) {
+  auto fn = kernel<int_matmul_packed_kernel, MR, BITS, QUANT>;
+  constexpr int smem = Smem<MR, BITS>::BYTES;
+  static std::atomic<std::uint64_t> opted{0};
+  const cudaError_t err = opt_in_smem(fn, smem, opted);
+  if (err != cudaSuccess) return err;
+  fn<<<grid_dim, NT, smem, stream>>>(x, codes, es, eb, rowsum, cst, grid,
+                                     offset, out, ws, M, N, K, chunk_groups,
+                                     vec, x_vec);
+  return cudaGetLastError();
+}
+
+template <int BITS, bool QUANT>
+int launch(const void* x, const uint8_t* codes, const float* es,
+           const float* eb, const float* rowsum, const float* cst,
+           const float* grid, int offset, float* out, void* ws,
+           long long ws_bytes, int M, int N, int K, int splits, int chunk,
+           cudaStream_t stream) {
+  // K = 0 at any M (kernel_path sends it here): no sums, the epilogue
+  // alone, WS_ROWS rows a launch
+  if (K == 0 && M > WS_ROWS) {
+    for (int m0 = 0; m0 < M; m0 += WS_ROWS) {
+      const int err = launch<BITS, QUANT>(
+          x, codes, es, eb, rowsum == nullptr ? nullptr : rowsum + m0, cst,
+          grid, offset, out + (size_t)m0 * N, ws, ws_bytes,
+          M - m0 < WS_ROWS ? M - m0 : WS_ROWS, N, 0, splits, chunk, stream);
+      if (err != 0) return err;
+    }
+    return 0;
+  }
+  const long long tiles = (N + BN - 1) / BN;
+  if (M < 1 || M > WS_ROWS || chunk <= 0 || chunk % GROUP || splits < 1 ||
+      splits > 65535 || (long long)splits * chunk < K ||
+      tiles > 0x7fffffffLL ||
+      (splits > 1 && (K > MAX_SPLIT_K || ws == nullptr ||
+                      ws_bytes < ws_bytes_for(tiles))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+  // a group's activations, one asynchronous copy: 16 bytes of fp32 or 4 of
+  // int8, every row starting aligned for it
+  const int x_vec = K % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % (QUANT ? 16 : 4) == 0;
+  const dim3 g(static_cast<unsigned>(tiles), splits);
+  int* const w = static_cast<int*>(ws);
+  const int cgr = chunk / GROUP;
+#define MR_LAUNCH(MR)                                                        \
+  launch_mr<MR, BITS, QUANT>(g, x, codes, es, eb, rowsum, cst, grid, offset, \
+                             out, w, M, N, K, cgr, vec, x_vec, stream)
+  const cudaError_t err = M <= 1   ? MR_LAUNCH(1)
+                          : M <= 2 ? MR_LAUNCH(2)
+                          : M <= 4 ? MR_LAUNCH(4)
+                                   : MR_LAUNCH(8);
+#undef MR_LAUNCH
+  return static_cast<int>(err);
+}
+
+}  // namespace istream
+
+// ---------------------------------------------------------------------------
+// itile: K6's prefill path
+// ---------------------------------------------------------------------------
+namespace itile {
+
+constexpr int BM = 128, BN = 128, BK = 128;  // BK: K codes (bytes) a stage
+constexpr int ROW = 128;           // bytes of one swizzled row: 128 int8
+constexpr int NT = 384;            // two consumer warpgroups, one producer
+constexpr int STAGES = 4;          // A and B tiles in flight
+constexpr int RAW_STAGES = 4;      // raw code tiles in flight
+constexpr int EMPTY_ARRIVALS = 8;  // one per consumer warp
+constexpr int FULL_ARRIVALS = 5;   // the TMA issue, one per producer warp
+constexpr int OUT_LD = BN + 4;     // floats a row of the staged output tile
+
+// Shared memory from a 1024-byte aligned base: the A ring (STAGES x 128
+// rows x 128 bytes), the B ring (STAGES x 128 N rows x 128 bytes), the raw
+// ring (RAW_STAGES x RAW_ROWS x 128 bytes), then the mbarriers: full
+// [STAGES], empty [STAGES], raw [RAW_STAGES]. After the last K step the
+// A and B rings hold the output tile (BM x OUT_LD fp32).
+template <int BITS>
+struct Layout {
+  static constexpr int A_BYTES = BM * ROW;         // 16 KB
+  static constexpr int B_BYTES = BN * ROW;         // 16 KB
+  static constexpr int RAW_ROWS = BK * BITS / 8;   // 32 or 64
+  static constexpr int RAW_BYTES = RAW_ROWS * BN;  // 4 or 8 KB
+  static constexpr int B_OFF = STAGES * A_BYTES;
+  static constexpr int RAW_OFF = B_OFF + STAGES * B_BYTES;
+  static constexpr int BAR_OFF = RAW_OFF + RAW_STAGES * RAW_BYTES;
+  static constexpr int ALLOC = BAR_OFF + (2 * STAGES + RAW_STAGES) * 8 + 1024;
+  static_assert(ALLOC <= 232448, "over the 227 KB a block can use");
+  static_assert(BM * OUT_LD * 4 <= RAW_OFF, "the output tile fits the rings");
+};
+
+#define R4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define R16(i) R4(i), R4(i + 4), R4(i + 8), R4(i + 12)
+#define R32(i) R16(i), R16(i + 16)
+
+// D (+)= A B over one k32 slice: A (64 x 32) and B (128 x 32), both int8
+// and K-major in shared memory; s32 sums.
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : R32(0), R32(32)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef R32
+#undef R16
+#undef R4
+
+// Widens one raw tile (RAW_ROWS packed rows x 128 columns at `raw`) into
+// the int8 B tile at `bt`: column t is B row t, K code k of the tile at
+// 16-byte chunk (k / 16) ^ (t % 8) of that row (the 128-byte swizzle).
+// Thread t (of the 128 producer threads) widens column t: 16/per bytes of
+// it, read down the column, make one chunk.
+template <int BITS>
+__device__ __forceinline__ void widen(const uint8_t* raw, uint8_t* bt, int t) {
+  // biased b-bit codes to signed int8, bytewise: (c + 128 - 2^(b-1)) ^ 0x80
+  constexpr uint32_t TO_SIGNED = BITS == 2 ? 0x7E7E7E7Eu : 0x78787878u;
+  uint8_t* const row = bt + t * ROW;
+  const uint8_t* const colp = raw + t;
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j) {
+    uint32_t w[4];
+    if constexpr (BITS == 2) {
+      // rows 4j .. 4j+3: K codes 16j + 4i + f in field f of byte i
+      const uint8_t* p = colp + 4 * j * BN;
+      const uint32_t b = static_cast<uint32_t>(p[0]) |
+                         static_cast<uint32_t>(p[BN]) << 8 |
+                         static_cast<uint32_t>(p[2 * BN]) << 16 |
+                         static_cast<uint32_t>(p[3 * BN]) << 24;
+      widen4<2>(b, 0u, w);
+    } else {
+      // rows 8j .. 8j+7: K codes 16j + 2i (low nibble), + 1 (high)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint8_t* p = colp + (8 * j + 4 * h) * BN;
+        const uint32_t b = static_cast<uint32_t>(p[0]) |
+                           static_cast<uint32_t>(p[BN]) << 8 |
+                           static_cast<uint32_t>(p[2 * BN]) << 16 |
+                           static_cast<uint32_t>(p[3 * BN]) << 24;
+        const uint32_t lo = b & 0x0F0F0F0Fu, hi = (b >> 4) & 0x0F0F0F0Fu;
+        w[2 * h] = __byte_perm(lo, hi, 0x5140);
+        w[2 * h + 1] = __byte_perm(lo, hi, 0x7362);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w[e] = (w[e] + TO_SIGNED) ^ 0x80808080u;
+    *reinterpret_cast<uint4*>(row + ((j ^ (t & 7)) << 4)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+template <class TAG, int BITS>
+__global__ void __launch_bounds__(NT, 1)
+    kernel(const __grid_constant__ CUtensorMap xmap,
+           const __grid_constant__ CUtensorMap cmap,
+           const float* __restrict__ eff_scale,
+           const float* __restrict__ eff_bias,
+           const float* __restrict__ rowsum, const int* __restrict__ rs_int,
+           const float* __restrict__ cst, float* __restrict__ out, int M,
+           int N, int K) {
+  using L = Layout<BITS>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sbase = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  const uint32_t base = smem_u32(sbase);
+  const uint32_t a_s = base, b_s = base + L::B_OFF;
+  const uint32_t raw_s = base + L::RAW_OFF, bars = base + L::BAR_OFF;
+  // full: bars + 8 s; empty: + 8 (STAGES + s); raw: + 8 (2 STAGES + r)
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (K + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, FULL_ARRIVALS);
+      mbar_init(bars + 8 * (STAGES + s), EMPTY_ARRIVALS);
+    }
+    for (int r = 0; r < RAW_STAGES; ++r)
+      mbar_init(bars + 8 * (2 * STAGES + r), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer warpgroup: thread 0 issues every TMA load, all 128 widen
+    const int t = threadIdx.x - 256;
+    const bool issuer = t == 0;
+    auto load_raw = [&](int i) {
+      const int r = i % RAW_STAGES;
+      const uint32_t bar = bars + 8 * (2 * STAGES + r);
+      mbar_expect_tx(bar, L::RAW_BYTES);
+      tile::tma_load_2d(raw_s + r * L::RAW_BYTES, &cmap, n0,
+                        i * L::RAW_ROWS, bar);
+    };
+    if (issuer)
+      for (int i = 0; i < min(nk, RAW_STAGES - 1); ++i) load_raw(i);
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % STAGES, phase = (i / STAGES) & 1;
+      const int r = i % RAW_STAGES, rphase = (i / RAW_STAGES) & 1;
+      const uint32_t full = bars + 8 * s;
+      if (issuer && i + RAW_STAGES - 1 < nk) {
+        // slot (i - 1) % RAW_STAGES: widened by every producer thread
+        // before the named barrier that ended step i - 1
+        fence_proxy_async();
+        load_raw(i + RAW_STAGES - 1);
+      }
+      mbar_wait(bars + 8 * (STAGES + s), phase ^ 1);
+      if (issuer) {
+        mbar_expect_tx(full, L::A_BYTES);
+        tile::tma_load_2d(a_s + s * L::A_BYTES, &xmap, i * BK, m0, full);
+      }
+      mbar_wait(bars + 8 * (2 * STAGES + r), rphase);
+      widen<BITS>(sbase + L::RAW_OFF + r * L::RAW_BYTES,
+                  sbase + L::B_OFF + s * L::B_BYTES, t);
+      fence_proxy_async();
+      __syncwarp();
+      if ((t & 31) == 0) mbar_arrive(full);
+      asm volatile("bar.sync 1, 128;" ::: "memory");
     }
   } else {
-    const dim3 grd = grid_of(M, N, 64, 64);
-    if constexpr (BITS == 8) {
-      int_matmul_kernel<QUANT, 64, 64, 64, 4, 4><<<grd, 16 * 16, 0, stream>>>(
-          x, static_cast<const int8_t*>(codes), eff_scale, eff_bias, rowsum,
-          cst, grid, offset, out, M, N, K);
-    } else {
-      int_matmul_packed_kernel<BITS, QUANT, 64, 64, 64, 4, 4>
-          <<<grd, 16 * 16, 0, stream>>>(
-              x, static_cast<const uint8_t*>(codes), eff_scale, eff_bias,
-              rowsum, cst, grid, offset, out, M, N, K);
+    // consumer warpgroup w: rows m0 + 64 w .. + 63
+    const int w = threadIdx.x >> 7;
+    const int lane = threadIdx.x & 31;
+    uint32_t acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0u;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % STAGES, phase = (i / STAGES) & 1;
+      mbar_wait(bars + 8 * s, phase);
+      const uint32_t xa = a_s + s * L::A_BYTES + w * 64 * ROW;
+      const uint32_t bt = b_s + s * L::B_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk)
+        wgmma_s8(acc, desc(xa + kk * 32), desc(bt + kk * 32),
+                 i > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait_one();  // step i - 1's products are done: free its stage
+      if (i > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bars + 8 * (STAGES + (i - 1) % STAGES));
+      }
+    }
+    wgmma_wait_all();
+#pragma unroll
+    for (int e = 0; e < 64; ++e) pin(acc[e]);
+
+    // element 4 j + e: row g (e < 2) or g + 8, column 8 j + 2 t4 + e % 2;
+    // the epilogue in registers, then the fp32 tile through shared memory
+    // (the A and B rings, free once both consumer warpgroups are past
+    // their last wgmma), rows padded to OUT_LD floats so that the
+    // fragments' stores meet no bank twice, and out to global memory a
+    // row at a time in 16-byte stores
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = 64 * w + 16 * ((threadIdx.x >> 5) & 3) + g, r1 = r0 + 8;
+    auto row_sum = [&](int row) {
+      return row >= M ? 0.f
+             : rs_int != nullptr ? static_cast<float>(rs_int[row])
+                                 : rowsum[row];
+    };
+    const float rs0 = row_sum(m0 + r0), rs1 = row_sum(m0 + r1);
+    float* const tile = reinterpret_cast<float*>(sbase);
+    asm volatile("bar.sync 2, 256;" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * j + 2 * t4;
+      float v0[2], v1[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = min(n0 + c + e, N - 1);
+        const float sc = eff_scale[n], bi = eff_bias[n], cc = cst[n];
+        v0[e] = int_epilogue(static_cast<int>(acc[4 * j + e]), rs0, sc, bi,
+                             cc);
+        v1[e] = int_epilogue(static_cast<int>(acc[4 * j + 2 + e]), rs1, sc,
+                             bi, cc);
+      }
+      *reinterpret_cast<float2*>(&tile[r0 * OUT_LD + c]) =
+          make_float2(v0[0], v0[1]);
+      *reinterpret_cast<float2*>(&tile[r1 * OUT_LD + c]) =
+          make_float2(v1[0], v1[1]);
+    }
+    asm volatile("bar.sync 2, 256;" ::: "memory");
+    const bool vec = N % 4 == 0;
+    for (int i = threadIdx.x; i < BM * BN / 4; i += 256) {
+      const int r = i / (BN / 4), c = 4 * (i % (BN / 4));
+      const int m = m0 + r, n = n0 + c;
+      if (m >= M || n >= N) continue;
+      const float4 v = *reinterpret_cast<const float4*>(&tile[r * OUT_LD + c]);
+      float* const o = out + (size_t)m * N + n;
+      if (vec) {
+        *reinterpret_cast<float4*>(o) = v;
+      } else {
+        const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (n + k < N) o[k] = e[k];
+      }
     }
   }
+}
+
+// The activation codes of row blockIdx.x as int8 rows of kp (a multiple of
+// 16) bytes, zeros past K: fp32 x quantized (QUANT) or int8 x copied; with
+// `rs_out`, their int32 sum.
+template <class TAG, bool QUANT>
+__global__ void __launch_bounds__(256)
+    prep(const void* __restrict__ x, const float* __restrict__ grid,
+         int offset, int K, int kp, int8_t* __restrict__ dst,
+         int* __restrict__ rs_out) {
+  const size_t m = blockIdx.x;
+  float alpha = 0.f, beta = 0.f, s = 1.f;
+  if constexpr (QUANT) {
+    alpha = grid[0];
+    beta = grid[1];
+    s = grid[2];
+  }
+  int rs = 0;
+  for (int k = threadIdx.x; k < kp; k += 256) {
+    int q = 0;
+    if (k < K) {
+      if constexpr (QUANT)
+        q = quant_act(static_cast<const float*>(x)[m * K + k], alpha, beta,
+                      s, offset);
+      else
+        q = static_cast<const int8_t*>(x)[m * K + k];
+    }
+    dst[m * kp + k] = static_cast<int8_t>(q);
+    rs += q;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) rs += __shfl_xor_sync(0xffffffffu, rs, o);
+  __shared__ int part[8];
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = rs;
+  __syncthreads();
+  if (threadIdx.x == 0 && rs_out != nullptr) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) total += part[w];
+    rs_out[m] = total;
+  }
+}
+
+// The tile path: x_prep / codes_prep say whether x and codes go through
+// prep / tile::pad_codes into `ws` first (the wrapper decides; the fp32
+// loader always preps). `ws` holds the activation codes (M x kp bytes),
+// their row sums (M int32), then the padded codes, each from a 256-byte
+// boundary.
+template <int BITS, bool QUANT>
+int launch(const void* x, const uint8_t* codes, const float* es,
+           const float* eb, const float* rowsum, const float* cst,
+           const float* grid, int offset, float* out, void* ws,
+           long long ws_bytes, int M, int N, int K, int x_prep,
+           int codes_prep, cudaStream_t stream) {
+  using TAG = int_matmul_packed_kernel;
+  constexpr int PER = 8 / BITS;
+  const int rows = (K + PER - 1) / PER;
+  if (K <= 0 || (QUANT && !x_prep))
+    return static_cast<int>(cudaErrorInvalidValue);
+  uint8_t* w = static_cast<uint8_t*>(ws);
+  size_t used = 0;
+  const void* xa = x;
+  long long x_row = K;
+  const int* rs_int = nullptr;
+  if (x_prep) {
+    const size_t kp = tile::round_up(K, 16);
+    const size_t xb = tile::round_up((size_t)M * kp, 256);
+    const size_t rb = tile::round_up((size_t)M * 4, 256);
+    if (w == nullptr || (size_t)ws_bytes < xb + rb)
+      return static_cast<int>(cudaErrorInvalidValue);
+    int* const rs = QUANT ? reinterpret_cast<int*>(w + xb) : nullptr;
+    prep<TAG, QUANT><<<M, 256, 0, stream>>>(x, grid, offset, K, (int)kp,
+                                            reinterpret_cast<int8_t*>(w), rs);
+    xa = w;
+    x_row = (long long)kp;
+    rs_int = rs;
+    used = xb + rb;
+  }
+  const uint8_t* cp = codes;
+  long long c_row = N;
+  if (codes_prep) {
+    const size_t np = tile::round_up(N, 16);
+    if (w == nullptr || (size_t)ws_bytes < used + (size_t)rows * np)
+      return static_cast<int>(cudaErrorInvalidValue);
+    tile::pad_codes<TAG>
+        <<<tile::blocks_for((size_t)rows * np), 256, 0, stream>>>(
+            codes, rows, N, (int)np, w + used);
+    cp = w + used;
+    c_row = (long long)np;
+  }
+  if (reinterpret_cast<uintptr_t>(xa) % 16 || x_row % 16 ||
+      reinterpret_cast<uintptr_t>(cp) % 16 || c_row % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xm, cm;
+  if (!tile::encode_2d(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, xa, K, M, x_row,
+                       BK, BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tile::encode_2d(&cm, CU_TENSOR_MAP_DATA_TYPE_UINT8, cp, N, rows, c_row,
+                       BN, Layout<BITS>::RAW_ROWS,
+                       CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto fn = kernel<TAG, BITS>;
+  constexpr int smem = Layout<BITS>::ALLOC;
+  static std::atomic<std::uint64_t> opted{0};
+  const cudaError_t err = opt_in_smem(fn, smem, opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 g((N + BN - 1) / BN, (M + BM - 1) / BM);
+  fn<<<g, NT, smem, stream>>>(xm, cm, es, eb, rowsum, rs_int, cst, out, M, N,
+                              K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace itile
+
+template <int BITS, bool QUANT>
+int launch_k6(const void* x, const uint8_t* codes, const float* es,
+              const float* eb, const float* rowsum, const float* cst,
+              const float* grid, int offset, float* out, int M, int N, int K,
+              int path, int splits, int chunk, void* ws, long long ws_bytes,
+              int x_prep, int codes_prep, cudaStream_t stream) {
+  if (path == 0)
+    return istream::launch<BITS, QUANT>(x, codes, es, eb, rowsum, cst, grid,
+                                        offset, out, ws, ws_bytes, M, N, K,
+                                        splits, chunk, stream);
+  if (path == 1)
+    return itile::launch<BITS, QUANT>(x, codes, es, eb, rowsum, cst, grid,
+                                      offset, out, ws, ws_bytes, M, N, K,
+                                      x_prep, codes_prep, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int BITS>
-int launch_int_any(const void* x, int quant, const void* codes,
-                   const float* eff_scale, const float* eff_bias,
-                   const float* rowsum, const float* cst, const float* grid,
-                   int act_bits, float* out, int M, int N, int K,
-                   cudaStream_t stream) {
-  if (quant) {
-    if (act_bits < 2 || act_bits > 8)
-      return static_cast<int>(cudaErrorInvalidValue);
-    launch_int<BITS, true>(x, codes, eff_scale, eff_bias, rowsum, cst, grid,
-                           1 << (act_bits - 1), out, M, N, K, stream);
-  } else {
-    launch_int<BITS, false>(x, codes, eff_scale, eff_bias, rowsum, cst, grid,
-                            0, out, M, N, K, stream);
-  }
-  return static_cast<int>(cudaGetLastError());
+int launch_k6_any(const void* x, int quant, const uint8_t* codes,
+                  const float* es, const float* eb, const float* rowsum,
+                  const float* cst, const float* grid, int act_bits,
+                  float* out, int M, int N, int K, int path, int splits,
+                  int chunk, void* ws, long long ws_bytes, int x_prep,
+                  int codes_prep, cudaStream_t stream) {
+  if (!quant)
+    return launch_k6<BITS, false>(x, codes, es, eb, rowsum, cst, grid, 0,
+                                  out, M, N, K, path, splits, chunk, ws,
+                                  ws_bytes, x_prep, codes_prep, stream);
+  if (act_bits < 2 || act_bits > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_k6<BITS, true>(x, codes, es, eb, rowsum, cst, grid,
+                               1 << (act_bits - 1), out, M, N, K, path,
+                               splits, chunk, ws, ws_bytes, x_prep,
+                               codes_prep, stream);
 }
 
 }  // namespace
@@ -1199,28 +2018,46 @@ extern "C" int int_matmul_i8(const void* x, int quant, const int8_t* codes,
                              const float* rowsum, const float* cst,
                              const float* grid, int act_bits, float* out,
                              int M, int N, int K, void* stream) {
-  return launch_int_any<8>(x, quant, codes, eff_scale, eff_bias, rowsum, cst,
-                           grid, act_bits, out, M, N, K,
-                           static_cast<cudaStream_t>(stream));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (quant) {
+    if (act_bits < 2 || act_bits > 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+    launch_k5<true>(x, codes, eff_scale, eff_bias, rowsum, cst, grid,
+                    1 << (act_bits - 1), out, M, N, K, s);
+  } else {
+    launch_k5<false>(x, codes, eff_scale, eff_bias, rowsum, cst, grid, 0, out,
+                     M, N, K, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-// K6: as int_matmul_i8, with codes (ceil(K/per), N) uint8 packing bits in
-// {2, 4} per code (per = 8 / bits) and K the logical fan-in. Returns
-// cudaErrorInvalidValue for other bits.
-extern "C" int int_matmul_packed_u8(const void* x, int quant,
-                                    const uint8_t* packed,
-                                    const float* eff_scale,
-                                    const float* eff_bias,
-                                    const float* rowsum, const float* cst,
-                                    const float* grid, int act_bits,
-                                    float* out, int M, int N, int K, int bits,
-                                    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 2)
-    return launch_int_any<2>(x, quant, packed, eff_scale, eff_bias, rowsum,
-                             cst, grid, act_bits, out, M, N, K, s);
-  if (bits == 4)
-    return launch_int_any<4>(x, quant, packed, eff_scale, eff_bias, rowsum,
-                             cst, grid, act_bits, out, M, N, K, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+// K6: as int_matmul_i8, with codes (ceil(K/per), N) uint8 packing `bits` in
+// {2, 4} a code (per = 8 / bits; quant/pack.py) and K the logical fan-in.
+// path 0 (M <= 8): the split-K stream, `splits` splits of `chunk` K rows (a
+// multiple of 4), and with splits > 1 `ws` the zeroed int32 workspace of
+// istream::ws_bytes_for(ceil(N / 128)) bytes that the launch leaves zeroed;
+// path 1: the int8 wgmma tiles, with x_prep / codes_prep as the wrapper
+// decided them (x_prep always with quant) and `ws` scratch for them (see
+// itile::launch). `ws_bytes` is the workspace's size. Returns
+// cudaErrorInvalidValue for other bits, paths or act_bits, a workspace too
+// small or operands TMA cannot take unprepared, else cudaGetLastError()
+// after the last launch (0 = launched).
+extern "C" int int_matmul_packed_u8(
+    const void* x, int quant, const uint8_t* packed, const float* eff_scale,
+    const float* eff_bias, const float* rowsum, const float* cst,
+    const float* grid, int act_bits, float* out, int M, int N, int K,
+    int bits, int path, int splits, int chunk, void* ws, long long ws_bytes,
+    int x_prep, int codes_prep, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+#define K6(B)                                                                \
+  launch_k6_any<B>(x, quant, packed, eff_scale, eff_bias, rowsum, cst, grid, \
+                   act_bits, out, M, N, K, path, splits, chunk, ws, ws_bytes, \
+                   x_prep, codes_prep, s)
+  switch (bits) {
+    case 2: return K6(2);
+    case 4: return K6(4);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef K6
 }
+

@@ -8,6 +8,7 @@ and how it is laid out.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -62,12 +63,14 @@ def fake_quant(x2: torch.Tensor, gate: torch.Tensor, beta: torch.Tensor,
     m, n = x2.shape
     out = torch.empty_like(x2)
     if m and n:
-        with torch.cuda.device(x2.device):
+        dev = x2.get_device()
+        with contextlib.nullcontext() if dev == torch.cuda.current_device() \
+                else torch.cuda.device(dev):
             rc = _kernel_fn()(
                 x2.data_ptr(), gate.data_ptr(), beta.data_ptr(),
                 out.data_ptr(), m, n, int(bool(signed)),
                 int(x2.dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream)
+                torch._C._cuda_getCurrentRawStream(dev))
         if rc != 0:
             raise RuntimeError(f"fake_quant launch failed: CUDA error {rc}")
         fake_quant.launches += 1

@@ -42,7 +42,7 @@ from repro_torch.kernels.paged_attention.paged_attention import (
 from repro_torch.kernels.paged_attention.ref import (
     bf16_rounding_tolerance, paged_attention_ref)
 from repro_torch.kernels.quant_matmul.quant_matmul import (
-    int_matmul, int_matmul_packed, kernel_path, quant_matmul,
+    int_matmul, int_matmul_packed, int_split_plan, kernel_path, quant_matmul,
     quant_matmul_packed)
 from repro_torch.kernels.quant_matmul.ref import (K1_RTOL,
                                                   int_matmul_packed_ref,
@@ -196,14 +196,20 @@ def test_serving_shapes_take_the_new_paths(cuda, mkn, path):
 @pytest.mark.parametrize("bits", [8, 4, 2])
 @pytest.mark.parametrize("mkn", [(3, 101, 37), (1, 64, 96), (8, 2048, 256),
                                  (64, 640, 130), (130, 66, 65),
-                                 (512, 2048, 256)])
+                                 (512, 2048, 256), (8, 2050, 300),
+                                 (5, 4099, 130), (8, 2048, 5632),
+                                 (9, 1001, 77), (300, 2050, 250),
+                                 (9, 0, 37)])
 def test_int_matmul_kernels_bit_equal_to_plain(cuda, mkn, bits, act_bits):
     """K5 (8-bit codes) and K6 (2/4-bit codes packed along K) with both
     loaders: int8 activation codes with their row sums, and fp32
     activations quantized in the kernel on a signed and an unsigned grid.
     Each bit for bit against its plain version (int32 sums are exact in any
     order; the epilogue is rounded as the plain version rounds it), and K6
-    bit for bit against K5 on the unpacked codes."""
+    bit for bit against K5 on the unpacked codes, on both of its paths
+    (M <= 8 the split-K stream, whose one launch leaves its workspace zero:
+    a second call gives the same bits; above, the int8 wgmma tiles), with
+    ragged M, N and K (N no multiple of 16, K no whole packed row)."""
     m, k, n = mkn
     g = torch.Generator(device=cuda).manual_seed(sum(mkn) + bits + act_bits)
     x = torch.randn((m, k), generator=g, device=cuda) * 1.5
@@ -233,11 +239,65 @@ def test_int_matmul_kernels_bit_equal_to_plain(cuda, mkn, bits, act_bits):
                                    bits=bits, k=k)
             k6f = int_matmul_packed(x, packed, es, eb, None, cst, bits=bits,
                                     k=k, act=(grid, act_bits))
+            again = int_matmul_packed(x, packed, es, eb, None, cst,
+                                      bits=bits, k=k, act=(grid, act_bits))
             torch.cuda.synchronize()
+            assert int_matmul_packed.path == kernel_path(m, n, k)
             assert torch.equal(wantp, want)
             assert torch.equal(k6, want) and torch.equal(k6f, want)
+            assert torch.equal(again, k6f)
     assert int_matmul.launches == before[0] + 4
-    assert int_matmul_packed.launches == before[1] + (4 if bits < 8 else 0)
+    assert int_matmul_packed.launches == before[1] + (6 if bits < 8 else 0)
+
+
+def test_int_matmul_packed_workspace_per_stream_and_in_graphs(cuda):
+    """K6's decode stream keeps one self-zeroing workspace a stream: calls
+    interleaved on two streams, and a CUDA graph captured after eager calls
+    on another stream (its workspace then made inside the capture), give
+    the plain version's bits, replay after replay."""
+    m, k, n, bits = 8, 2050, 300, 4
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    codes = torch.randint(-8, 8, (k, n), generator=g, device=cuda,
+                          dtype=torch.int8)
+    packed = pack_codes(codes, bits)
+    es = torch.rand((n,), generator=g, device=cuda) * 1e-3 + 1e-5
+    eb = (torch.rand((n,), generator=g, device=cuda) - 0.5) * 2e-4
+    cst = torch.rand((n,), generator=g, device=cuda) - 0.5
+    beta = torch.tensor(2.0, device=cuda)
+    grid = torch.stack([-beta, beta, affine_grid(8, beta, True)[0]])
+    qx, rowsum = quantize_act_ref(x, grid, 8)
+    want = int_matmul_packed_ref(qx, packed, es, eb, rowsum, cst, bits=bits,
+                                 k=k)
+
+    def call():
+        return int_matmul_packed(x, packed, es, eb, None, cst, bits=bits,
+                                 k=k, act=(grid, 8))
+
+    assert kernel_path(m, n, k) == "stream"
+    assert int_split_plan(n, k)[0] > 1
+    main, pair = torch.cuda.current_stream(), (torch.cuda.Stream(),
+                                               torch.cuda.Stream())
+    outs = []
+    for s in pair:
+        s.wait_stream(main)
+    for _ in range(20):
+        for s in pair:
+            with torch.cuda.stream(s):
+                outs.append(call())
+    for s in pair:
+        main.wait_stream(s)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert torch.equal(call(), want)
 
 
 def _quant_pools(bits, hd, b=5, kvh=2, bs=8, mb=6, seed=0):
@@ -746,25 +806,31 @@ def test_gemma2_engine_on_card_runs_through_k7(cuda):
         half * st["decode_ticks"], half * st["decode_ticks"], 0)
 
 
-@pytest.mark.parametrize("mn", [(1, 1), (3, 101), (64, 257), (300, 2048)])
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("mn", [(1, 1), (3, 101), (64, 257), (300, 2048),
+                                (5, 3), (7, 5632)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("signed", [True, False])
-def test_fake_quant_kernel_bit_equal_to_plain(cuda, mn, dtype, signed):
+def test_fake_quant_kernel_bit_equal_to_plain(cuda, mn, dtype, signed,
+                                              offset):
     """K3 against its plain version bit for bit: per-channel gates over
-    every level (and below the 0.5 clamp), then one scalar gate."""
+    every level (and below the 0.5 clamp), then one scalar 8-bit and the
+    training's 16-bit scalar gate; N of 1, 3, 257 and 5632, x also as a
+    view whose base sits one element into its storage."""
     m, n = mn
     g = torch.Generator(device=cuda).manual_seed(m * n + signed)
-    x = (torch.randn((m, n), generator=g, device=cuda) * 1.5).to(dtype)
+    x = (torch.randn((m * n + 1,), generator=g, device=cuda) * 1.5).to(dtype)
+    x = x[1:].view(m, n) if offset else x[:m * n].view(m, n)
     levels = torch.tensor([0.3, 0.8, 1.5, 2.5, 3.05, 3.5, 5.5], device=cuda)
     gate = levels[torch.arange(n, device=cuda) % len(levels)]
     beta = torch.rand((n,), generator=g, device=cuda) * 1.7 + 0.3
     before = fake_quant.launches
-    for gt in (gate, torch.full_like(gate, 2.5)):
+    for gt in (gate, torch.full_like(gate, 2.5), torch.full_like(gate, 3.05)):
         got = fake_quant(x, gt, beta, signed)
         want = fake_quant_ref(x, gt, beta, signed)
         torch.cuda.synchronize()
         assert got.dtype == dtype and torch.equal(got, want)
-    assert fake_quant.launches == before + 2
+    assert fake_quant.launches == before + 3
 
 
 # the tolerances of tests/test_torch_train.py
