@@ -85,9 +85,12 @@ Phases, in order; any failure exits non-zero:
 The kernels phase also holds K5 and K6 (int8 x int8 GEMMs summed in int32,
 slice 5) bit for bit against their plain versions at every GEMM shape of
 the int cells, with both activation loaders (int8 codes, and fp32
-activations quantized in the kernel), and K6 bit for bit against K5 on the
-unpacked codes and over two calls, naming its path (the split-K stream at
-the decode rows, the int8 wgmma tiles at the prefill rows), and K7 (whole-prompt flash attention, slice 6) within its
+activations quantized in the kernel), K5 also at K = 0 above 8 rows and on
+operands whose column sums pass 2^24, and K6 bit for bit against K5 on
+the unpacked codes, each over two calls and naming its path (the split-K
+stream at the decode rows, the int8 wgmma tiles at the prefill rows;
+K5's and K6's tile instances' IGMMA and UTMALDG in the build phase), and
+K7 (whole-prompt flash attention, slice 6) within its
 stated tolerance at tinyllama's and gemma2's prefill shapes, a ragged S,
 fp32 operands, head_dim 128 and Hq == Hkv, each case naming the kernel it
 ran (bf16 at head_dim 64-256: tensor cores; fp32: FMA); the build phase
@@ -382,10 +385,11 @@ def phase_build():
                                for c in tc.values()),
           f"K7's tensor-core instances lack HGMMA or UTMALDG: {tc}")
     # K1/K4's prefill tiles (tile::kernel<bits 8/4/2, x bf16 or two terms>:
-    # HGMMA) and K6's (itile::kernel<bits 2/4>: int8 wgmma, IGMMA) likewise
+    # HGMMA) and K5's and K6's (itile::kernel<int_matmul_kernel, 8> and
+    # <int_matmul_packed_kernel, 2/4>: int8 wgmma, IGMMA) likewise
     qmm = sass_counts("quant_matmul")
     for ns, want, op, who in (("4tile6kernel", 6, "HGMMA", "K1/K4"),
-                              ("5itile6kernel", 2, "IGMMA", "K6")):
+                              ("5itile6kernel", 3, "IGMMA", "K5/K6")):
         tiles = {fn: c for fn, c in qmm.items() if ns in fn}
         for fn, c in tiles.items():
             print(f"[build] quant_matmul SASS {fn}: "
@@ -393,6 +397,9 @@ def phase_build():
         check(len(tiles) == want
               and all(c[op] and c["UTMALDG"] for c in tiles.values()),
               f"{who}'s wgmma tiles lack {op} or UTMALDG: {tiles}")
+    check(sum("17int_matmul_kernel" in fn for fn in qmm
+              if "5itile6kernel" in fn) == 1,
+          "no wgmma tile instance of K5 (itile::kernel<int_matmul_kernel>)")
 
 
 def _prompts(vocab: int, lo: int = PROMPT_LO, hi: int = PROMPT_HI):
@@ -655,23 +662,32 @@ def k2_case(softcap, gen, card: str, max_pos: int):
     return res
 
 
-def _int_operands(m: int, k: int, n: int, bits: int, gen):
+def _int_operands(m: int, k: int, n: int, bits: int, gen,
+                  worst: bool = False):
     """fp32 activations with their 8-bit signed grid, their codes and row
     sums (plain version), ``bits``-bit weight codes and random epilogue
-    vectors, on the card."""
+    vectors, on the card. ``worst`` (8 bits): activation and weight codes
+    drawn in [100, 127], so that every column sum passes 2^24 (at K 2048,
+    2.0e7) with random low bits, the activations on those codes' grid
+    points."""
     import torch
 
     from repro_torch.core.quantizer import affine_grid
     from repro_torch.kernels.quant_matmul.ref import quantize_act_ref
 
     dev = "cuda"
-    x = torch.randn((m, k), generator=gen, device=dev) * 1.5
     beta = torch.tensor(4.0, device=dev)
     s, _ = affine_grid(INT_ACT_BITS, beta, True)
     grid = torch.stack([-beta, beta, s])
+    if worst:
+        c = torch.randint(100, 128, (m, k), generator=gen, device=dev)
+        x = (c + 128).to(torch.float32) * s - beta
+    else:
+        x = torch.randn((m, k), generator=gen, device=dev) * 1.5
     qx, rowsum = quantize_act_ref(x, grid, INT_ACT_BITS)
     half = 1 << (bits - 1)
-    codes = torch.randint(-half, half, (k, n), generator=gen, device=dev,
+    lo, hi = (100, 128) if worst else (-half, half)
+    codes = torch.randint(lo, hi, (k, n), generator=gen, device=dev,
                           dtype=torch.int8)
     es = torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-5
     eb = (torch.rand((n,), generator=gen, device=dev) - 0.5) * 2e-4
@@ -699,33 +715,61 @@ def _int_mm_ms(qx, codes, graph: bool = False):
     return timer(lambda: torch._int_mm(a, cc[next(it) % len(cc)])), mm
 
 
-def k5_case(m: int, k: int, n: int, gen, card: str):
+def k5_case(m: int, k: int, n: int, gen, card: str, worst: bool = False,
+            timed: bool = True):
     """K5 against its plain version at (M, K, N), bit for bit, with both
     loaders: int8 activation codes with their row sums (the TPU kernel's
     contract) and fp32 activations quantized in the kernel (the serving
-    path's launch, the one timed). Returns a result dict."""
+    path's launch, the one timed), two calls bit-identical, the path taken
+    (``kernel_path``); ``worst``: codes in [100, 127], every column sum
+    past 2^24. Timed (``timed``) back to back from Python (``ms``), the
+    device alone (``graph_ms``, a replayed CUDA graph) and the host's time
+    a call (``host_ms``), the codes taken in turn from copies past L2.
+    Returns a result dict."""
     import torch
 
-    from repro_torch.kernels.quant_matmul.quant_matmul import int_matmul
+    from repro_torch.kernels.quant_matmul.quant_matmul import (int_matmul,
+                                                               kernel_path)
     from repro_torch.kernels.quant_matmul.ref import (int_matmul_ref,
                                                       quantize_act_ref)
 
-    x, grid, qx, rowsum, codes, es, eb, cst = _int_operands(m, k, n, 8, gen)
+    x, grid, qx, rowsum, codes, es, eb, cst = _int_operands(m, k, n, 8, gen,
+                                                            worst)
     act = (grid, INT_ACT_BITS)
     want = int_matmul_ref(qx, codes, es, eb, rowsum, cst)
     got = int_matmul(qx, codes, es, eb, rowsum, cst)
     fused = int_matmul(x, codes, es, eb, None, cst, act=act)
+    again = int_matmul(x, codes, es, eb, None, cst, act=act)
+    path = int_matmul.path
     torch.cuda.synchronize()
     mismatches = int((got != want).sum()) + int((fused != want).sum())
     err = max(float((got - want).abs().max()),
               float((fused - want).abs().max()))
-    res = {"shape": (m, k, n), "mismatches": mismatches, "max_abs_err": err,
-           "ok": mismatches == 0}
+    res = {"shape": (m, k, n), "path": path, "worst": worst,
+           "mismatches": mismatches, "max_abs_err": err,
+           "repeatable": bool(torch.equal(fused, again))}
+    check(path == kernel_path(m, n, k),
+          f"int_matmul ran {path}, not {kernel_path(m, n, k)}")
+    res["ok"] = mismatches == 0 and res["repeatable"]
+    head = (f"[kernels] int_matmul M={m} K={k} N={n}"
+            + (" (codes in [100, 127]: column sums past 2^24)" if worst
+               else "") + f": path {path}; {mismatches} mismatches against "
+            f"the plain version in 2 x {m * n} elements (bit for bit), two "
+            f"calls {'bit-identical' if res['repeatable'] else 'DIFFER'} -> "
+            f"{'ok' if res['ok'] else 'FAIL'}")
+    if not timed:
+        print(f"{head} [{card}]")
+        return res
 
     cc = [codes.clone() for _ in range(copies_past_l2(codes.numel()))]
     it = iter(range(1 << 30))
-    res["ms"] = time_ms(lambda: int_matmul(
-        x, cc[next(it) % len(cc)], es, eb, None, cst, act=act))
+
+    def run():
+        return int_matmul(x, cc[next(it) % len(cc)], es, eb, None, cst,
+                          act=act)
+    res["ms"] = time_ms(run)
+    res["graph_ms"] = graph_ms(run)
+    res["host_ms"] = host_ms(run)
     res["codes_in_ms"] = time_ms(lambda: int_matmul(
         qx, cc[next(it) % len(cc)], es, eb, rowsum, cst))
 
@@ -735,16 +779,17 @@ def k5_case(m: int, k: int, n: int, gen, card: str):
 
     res["plain_ms"] = time_ms(plain)
     res["library_ms"], res["library_m"] = _int_mm_ms(qx, codes)
+    res["library_graph_ms"] = _int_mm_ms(qx, codes, graph=True)[0]
     res["bytes"] = 4 * m * k + k * n + 12 * n + 12 + 4 * m * n
     res["flops"] = 2.0 * m * n * k
     res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], res["flops"],
                                                 INT8_OPS_S)
     lib = "n/a (K, N not multiples of 8)" if res["library_ms"] is None \
-        else f"{res['library_ms']:.4f} ms at M={res['library_m']}"
-    print(f"[kernels] int_matmul M={m} K={k} N={n}: {mismatches} mismatches "
-          f"against the plain version in 2 x {m * n} elements (bit for bit)"
-          f" -> {'ok' if res['ok'] else 'FAIL'}; kernel {res['ms']:.4f} ms "
-          f"(int8 codes in: {res['codes_in_ms']:.4f} ms), plain "
+        else (f"{res['library_ms']:.4f} ms ({res['library_graph_ms']:.4f} ms "
+              f"graph) at M={res['library_m']}")
+    print(f"{head}; kernel {res['ms']:.4f} ms back to back, "
+          f"{res['graph_ms']:.4f} ms graph (host {res['host_ms']:.4f} ms a "
+          f"call; int8 codes in: {res['codes_in_ms']:.4f} ms), plain "
           f"{res['plain_ms']:.4f} ms, library (torch._int_mm) {lib}, bound "
           f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}) [{card}]")
     return res
@@ -1336,6 +1381,40 @@ def k3_forward(cfg, k3, card: str) -> dict:
     return tot
 
 
+def k5_step(cfg, k5, m_prefill: int, card: str) -> dict:
+    """One uniform decode step's K5 work (its GEMMs at M = slots by their
+    launches a forward, ``k1_shapes``): back to back, device time
+    (replayed graphs), host time a call, ``torch._int_mm`` at M = 32 (back
+    to back and graphs), bound; and mlp_gate at the prefill rows. Printed;
+    returns the step's sums with the prefill row under ``prefill``."""
+    rows = [(k5[(SLOTS, k, n)], c) for (k, n), c in k1_shapes(cfg).items()]
+    step = {key: sum(r[key] * c for r, c in rows)
+            for key in ("ms", "graph_ms", "plain_ms", "library_ms",
+                        "library_graph_ms")}
+    calls = sum(c for _, c in rows)
+    step["host_ms"] = sum(r["host_ms"] * c for r, c in rows) / calls
+    step["bound_ms"], step["bound_by"] = bound_ms(
+        sum(r["bytes"] * c for r, c in rows),
+        sum(r["flops"] * c for r, c in rows), INT8_OPS_S)
+    pre = k5[(m_prefill, cfg.d_model, cfg.d_ff)]
+    step["prefill"] = {key: pre[key] for key in (
+        "shape", "path", "max_abs_err", "ms", "graph_ms", "host_ms",
+        "plain_ms", "library_ms", "library_graph_ms", "bound_ms", "bound_by")}
+    print(f"[kernels] int_matmul, one uniform decode step ({calls} GEMMs "
+          f"at M={SLOTS}, path {rows[0][0]['path']}): device "
+          f"{step['graph_ms']:.4f} ms (replayed graphs), back to back "
+          f"{step['ms']:.4f} ms, host {step['host_ms']:.4f} ms a call, "
+          f"torch._int_mm {step['library_ms']:.4f} ms "
+          f"({step['library_graph_ms']:.4f} graph) at M={INT_MM_MIN_M}, bound "
+          f"{step['bound_ms']:.4f} ms ({step['bound_by']}); prefill "
+          f"mlp_gate M={m_prefill}: path {pre['path']}, device "
+          f"{pre['graph_ms']:.4f} ms, back to back {pre['ms']:.4f} ms, "
+          f"torch._int_mm {pre['library_ms']:.4f} ms "
+          f"({pre['library_graph_ms']:.4f} graph), bound "
+          f"{pre['bound_ms'] * 1e3:.2f} us ({pre['bound_by']}) [{card}]")
+    return step
+
+
 def k6_step(cfg, k6, m_prefill: int, card: str) -> dict:
     """One mixed decode step's K6 work (its packed GEMMs at M = slots by
     their launches a forward): back to back, device time (replayed
@@ -1518,6 +1597,13 @@ def phase_kernels(cfg, m_prefill: int, card: str):
         for k, n in k1_shapes(cfg):
             k5[(m, k, n)] = k5_case(m, k, n, gen, card)
     k5[(3, 101, 37)] = k5_case(3, 101, 37, gen, card)
+    # K = 0 above 8 rows (the stream's epilogue alone), and column sums
+    # past 2^24 at gemma2's mlp_down on both paths
+    k5[(9, 0, 37)] = k5_case(9, 0, 37, gen, card, timed=False)
+    for m in (SLOTS, m_prefill):
+        k5[(m, 9216, 2304)] = k5_case(m, 9216, 2304, gen, card, worst=True,
+                                      timed=False)
+    k5_step(cfg, k5, m_prefill, card)
     k6 = {}
     for m in (SLOTS, m_prefill):
         for k, n, bits in mixed_k4_shapes(cfg):
@@ -2655,7 +2741,9 @@ def kernels_line(cfg, m_prefill, k1, k2, k4, k2b, k3, k2c, k5, k6, k7,
     ``host_ms`` the wrapper's host time a call); int_matmul: one uniform decode
     step's K5 work (the 155 GEMMs at M = slots, fp32 activations quantized
     in the kernel; library: ``torch._int_mm`` at M = 32, which needs
-    M > 16); int_matmul_packed: one mixed decode step's K6 work (its 111
+    M > 16; ``graph_ms`` and ``library_graph_ms`` device time, ``host_ms``
+    a call), with ``prefill`` mlp_gate at tinyllama's prefill rows;
+    int_matmul_packed: one mixed decode step's K6 work (its 111
     packed GEMMs; library: ``torch._int_mm`` on the unpacked codes;
     ``graph_ms`` and ``library_graph_ms`` device time, ``host_ms`` a call),
     with ``prefill`` the 2-bit mlp_gate at tinyllama's prefill rows;
@@ -2727,6 +2815,7 @@ def kernels_line(cfg, m_prefill, k1, k2, k4, k2b, k3, k2c, k5, k6, k7,
     k3_bound, k3_by = bound_ms(sum(r["bytes"] * c for r, c in rows3),
                                sum(r["flops"] * c for r, c in rows3))
     rows5 = [(k5[(SLOTS, k, n)], c) for (k, n), c in per_step.items()]
+    k5p = k5[(m_prefill, d, d_ff)]
     k5_bound, k5_by = bound_ms(sum(r["bytes"] * c for r, c in rows5),
                                sum(r["flops"] * c for r, c in rows5),
                                INT8_OPS_S)
@@ -2811,10 +2900,16 @@ def kernels_line(cfg, m_prefill, k1, k2, k4, k2b, k3, k2c, k5, k6, k7,
          "replaces": "src/repro/kernels/quant_matmul/quant_matmul.py:278",
          "launches": int_launches["int_matmul"],
          "max_abs_err": max(r["max_abs_err"] for r in k5.values()),
-         "ms": sum(r["ms"] * c for r, c in rows5),
-         "plain_ms": sum(r["plain_ms"] * c for r, c in rows5),
+         **{key: sum(r[key] * c for r, c in rows5)
+            for key in ("ms", "graph_ms", "plain_ms", "library_ms",
+                        "library_graph_ms")},
+         "host_ms": sum(r["host_ms"] * c for r, c in rows5)
+         / sum(c for _, c in rows5),
          "bound_ms": k5_bound, "bound_by": k5_by,
-         "library_ms": sum(r["library_ms"] * c for r, c in rows5)},
+         "prefill": {key: k5p[key] for key in (
+             "shape", "path", "max_abs_err", "ms", "graph_ms", "host_ms",
+             "plain_ms", "library_ms", "library_graph_ms", "bound_ms",
+             "bound_by")}},
         {"name": "int_matmul_packed", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul/quant_matmul.py:349",

@@ -1,6 +1,6 @@
 """Time one hand-written kernel of one checkout on one card.
 
-    python3 scripts/kernel_timing.py --kernel k1|k2|k3|k4|k6|k7
+    python3 scripts/kernel_timing.py --kernel k1|k2|k3|k4|k5|k6|k7
                                      [--src DIR] [--label NAME]
 
 ``k2`` (paged decode attention): K2a, K2b over an int4 pool and K2c under
@@ -18,7 +18,12 @@ the entry point the serving path calls (``quant_matmul_op`` /
 ``quant_matmul_packed_op``) on bf16 activations, the codes taken in turn
 from copies past L2; each decode step's sums by launch count close the
 output. ``k3`` (fused fake-quant): every shape of a CGMQ forward
-(``chip_smoke.k3_shapes``), summed by launches into the forward. ``k6``
+(``chip_smoke.k3_shapes``), summed by launches into the forward. ``k5``
+(int8 x int8 GEMM): every GEMM of [serve-int]'s uniform int8 state
+(``chip_smoke.k1_shapes``) at 8 rows, summed into a decode step, and at
+512 rows, on fp32 activations quantized in the kernel as the serving path
+calls it, with ``torch._int_mm`` (at M 32 for the decode rows; it needs
+M > 16) on the same codes beside each. ``k6``
 (int8 x packed 2/4-bit GEMM): the mixed state's packed GEMMs at 8 rows
 (summed into a decode step) and 512, on fp32 activations quantized in the
 kernel, as the serving path calls it, and the 2-bit mlp_gate at 64, 352
@@ -30,11 +35,11 @@ checkout's ``src``). Each case prints three times a call: back to back
 from Python (``chip_smoke.time_ms``; the host's work counts where it
 exceeds the device's), the device time alone (a replayed CUDA graph,
 ``chip_smoke.graph_ms``) and the host's wall time (``chip_smoke.host_ms``),
-and SDPA's by the first two methods where the case has it. Point ``--src``
-at the ``src`` of another commit unpacked by ``git archive`` into a
-directory that ``.gitignore`` lists, and run it in one call beside this
-checkout's, to compare two versions of a kernel on the same card by the
-same methods. Correctness is ``chip_smoke.py``'s to check, not this
+and the library call's (SDPA, ``torch._int_mm``) by the first two methods
+where the case has it. Point ``--src`` at the ``src`` of another commit
+unpacked by ``git archive`` into a directory that ``.gitignore`` lists,
+and run it in one call beside this checkout's, to compare two versions
+of a kernel on the same card by the same methods. Correctness is ``chip_smoke.py``'s to check, not this
 script's. The last line is one JSON object: the card, the kernel, the
 label and each case's times.
 """
@@ -268,13 +273,54 @@ def _k6_cases(gen):
         yield name, call, None, 20
 
 
+def _k5_cases(gen):
+    """Yields (name, call, torch._int_mm or None, iters) for each K5 GEMM of
+    the uniform int8 state (``chip_smoke.k1_shapes``) at the decode rows
+    (8) and a prefill (512 rows), as the serving path calls it: fp32
+    activations quantized in the kernel on an 8-bit grid, the codes taken
+    in turn from copies past L2, ``torch._int_mm`` on the same codes at M =
+    max(M, 32) beside it (None where K or N is no multiple of 8); notes
+    each decode GEMM's launches a step in ``_STEP``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_matmul.quant_matmul import int_matmul
+
+    cfg = get_config("tinyllama-1.1b")
+    for m in (chip_smoke.SLOTS, 512):
+        for (k, n), count in chip_smoke.k1_shapes(cfg).items():
+            x, grid, qx, _, codes, es, eb, cst = chip_smoke._int_operands(
+                m, k, n, 8, gen)
+            copies = [codes] + [codes.clone() for _ in range(
+                chip_smoke.copies_past_l2(codes.numel()) - 1)]
+            turn = itertools.count()
+
+            def call(x=x, c=copies, t=turn, v=(es, eb, cst), a=(grid, 8)):
+                return int_matmul(x, c[next(t) % len(c)], v[0], v[1], None,
+                                  v[2], act=a)
+            lib = None
+            if k % 8 == 0 and n % 8 == 0:
+                a = torch.zeros((max(m, chip_smoke.INT_MM_MIN_M), k),
+                                dtype=torch.int8, device="cuda")
+                a[:m] = qx
+
+                def lib(a=a, c=copies, t=itertools.count()):
+                    return torch._int_mm(a, c[next(t) % len(c)])
+            name = f"{cfg.name} K5 M={m} K={k} N={n}"
+            if m == chip_smoke.SLOTS:
+                _STEP[name] = (f"{cfg.name} uniform int decode step", count)
+            yield name, call, lib, 20
+
+
 # decode GEMM name -> (model, launches per step), filled by _qmm_cases,
-# _k3_cases (a CGMQ forward's shapes) and _k6_cases
+# _k3_cases (a CGMQ forward's shapes), _k5_cases and _k6_cases
 _STEP: dict[str, tuple[str, int]] = {}
 
 CASES = {"k1": lambda gen: _qmm_cases(gen, False), "k2": _k2_cases,
          "k3": _k3_cases, "k4": lambda gen: _qmm_cases(gen, True),
-         "k6": _k6_cases, "k7": _k7_cases}
+         "k5": _k5_cases, "k6": _k6_cases, "k7": _k7_cases}
+# the library call timed beside a kernel's cases, where they have one
+LIBRARY = {"k2": "SDPA", "k5": "torch._int_mm"}
 
 
 def main() -> int:
@@ -293,23 +339,23 @@ def main() -> int:
     card = chip_smoke.phase_device()
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
     rows = []
-    for name, kernel, sdpa, iters in CASES[args.kernel](gen):
+    for name, kernel, library, iters in CASES[args.kernel](gen):
         warm = min(3, iters)
         row = {"case": name,
                "ms": chip_smoke.time_ms(kernel, iters, warm),
                "graph_ms": chip_smoke.graph_ms(kernel, min(iters, 20), warm),
                "host_ms": chip_smoke.host_ms(kernel)}
         note = ""
-        if sdpa is not None:
-            row["library_ms"] = chip_smoke.time_ms(sdpa, iters, warm)
-            row["library_graph_ms"] = chip_smoke.graph_ms(sdpa)
-            note = (f"; SDPA {row['library_ms']:.4f} ms, graph "
-                    f"{row['library_graph_ms']:.4f} ms")
+        if library is not None:
+            row["library_ms"] = chip_smoke.time_ms(library, iters, warm)
+            row["library_graph_ms"] = chip_smoke.graph_ms(library)
+            note = (f"; {LIBRARY[args.kernel]} {row['library_ms']:.4f} ms, "
+                    f"graph {row['library_graph_ms']:.4f} ms")
         rows.append(row)
         print(f"[timing] {args.label} {name}: back to back "
               f"{row['ms']:.4f} ms, replayed graph {row['graph_ms']:.4f} "
               f"ms, host {row['host_ms']:.4f} ms a call{note} [{card}]")
-        del kernel, sdpa
+        del kernel, library
         torch.cuda.empty_cache()
     steps = {}
     for row in rows:
@@ -317,13 +363,17 @@ def main() -> int:
             model, count = _STEP[row["case"]]
             step = steps.setdefault(model, dict.fromkeys(
                 ("ms", "graph_ms", "launches"), 0))
-            step["ms"] += count * row["ms"]
-            step["graph_ms"] += count * row["graph_ms"]
+            for key in ("ms", "graph_ms", "library_ms", "library_graph_ms"):
+                if key in row:
+                    step[key] = step.get(key, 0) + count * row[key]
             step["launches"] += count
     for model, step in steps.items():
+        lib = "" if "library_ms" not in step else (
+            f"; {LIBRARY[args.kernel]} {step['library_ms']:.4f} ms, graph "
+            f"{step['library_graph_ms']:.4f} ms")
         print(f"[timing] {args.label} {model}, "
               f"{step['launches']} launches: back to back {step['ms']:.4f} "
-              f"ms, replayed graph {step['graph_ms']:.4f} ms [{card}]")
+              f"ms, replayed graph {step['graph_ms']:.4f} ms{lib} [{card}]")
     print(json.dumps({"card": card, "kernel": args.kernel,
                       "label": args.label, "src": str(args.src),
                       "cases": rows, "decode_steps": steps}))

@@ -887,9 +887,9 @@ int launch_fused(const void* x, int x_bf16, const void* codes,
 //     out[m, n] = eff_scale[n] * (qx @ codes)[m, n] + eff_bias[n] * rowsum[m]
 //                 + cst[n]
 //
-// qx holds per-tensor activation codes, codes the weight codes (int8, or
-// packed 2/4-bit fields as for K4); ops.py folds the two affine grids into
-// eff_scale = sx * scale, eff_bias = sx * bias and
+// qx holds per-tensor activation codes, codes the weight codes: int8 (K, N)
+// for K5, packed 2/4-bit fields as for K4 for K6; ops.py folds the two
+// affine grids into eff_scale = sx * scale, eff_bias = sx * bias and
 // cst = bx * (scale * colsum + K * bias), so out equals
 // (qx * sx + bx) @ (codes * scale + bias) in exact arithmetic.
 //
@@ -903,27 +903,25 @@ int launch_fused(const void* x, int x_bf16, const void* codes,
 // [alpha, beta, s] with offset 2^(bits-1), exactly as
 // core.quantizer.quantize_to_int does it (clip, subtract, IEEE divide,
 // round half to even; quant_act), with the row sums of the codes taken in
-// the kernel. Every sum is an int32 sum of integers, exact in any order, and
-// every epilogue is rounded explicitly (__fadd_rn/__fmul_rn, no FMA
-// contraction) in the plain version's order (int_epilogue): K5 and K6 are
-// bit-equal to their plain versions, and K6 on pack(c) to K5 on c, whatever
-// the split or tile.
+// the kernel. Every sum is an int32 sum of integers, exact in any order (for
+// K < 2^17: |a c| <= 2^14), and every epilogue is rounded explicitly
+// (__fadd_rn/__fmul_rn, no FMA contraction) in the plain version's order
+// (int_epilogue): K5 and K6 are bit-equal to their plain versions, and K6 on
+// pack(c) to K5 on c, whatever the split or tile.
 //
-// K5 (int8 codes): one thread block a BM x BN output tile
-// (8 x 32 at M <= 8, 64 x 64 with 4 x 4 register tiles above), both
-// operands staged in shared memory as 32-bit words of four consecutive K
-// codes, __dp4a products; ragged edges zeroed on load.
+// K5 is K6's 8-bit case: one template over BITS 8, 4 and 2 on two paths,
+// chosen by the wrapper from (M, N, K) alone, the same for K5 and K6
+// (kernels/quant_matmul/quant_matmul.py: kernel_path, int_split_plan), one C
+// entry (int_matmul_fused).
 //
-// K6 (packed 2/4-bit codes): two paths, chosen by the wrapper from (M, N, K)
-// alone (kernels/quant_matmul/quant_matmul.py: kernel_path, int_split_plan).
-//
-// istream:: (decode, M <= 8) bound by the bytes of the packed codes: a
-//   split-K stream with K1/K4's structure (stream:: above), in one launch:
+// istream:: (decode, M <= 8) bound by the bytes of the codes: a split-K
+//   stream with K1/K4's structure (stream:: above), in one launch:
 //   * a (N / 128, splits) grid of 128-thread blocks; a split is a whole
-//     number of groups of 4 K rows (one packed row at 2 bits, two at 4);
-//     thread (slice, column group) owns 16 columns and groups slice,
-//     slice + 16, ... of its split, copied 16 bytes at a time (cp.async)
-//     into its own ring of 8 groups in shared memory, 7 in flight;
+//     number of groups of 4 K rows (4 int8 rows, one packed row at 2 bits,
+//     two at 4); thread (slice, column group) owns 16 columns and groups
+//     slice, slice + 16, ... of its split, copied 16 bytes at a time
+//     (cp.async) into its own ring of 8 groups in shared memory, 7 in
+//     flight;
 //   * activation row r of a group travels in the ring of thread (slice,
 //     r) beside the codes (one 16-byte copy of fp32, 4 bytes of int8);
 //     that thread turns it into one 32-bit word of 4 K codes (the fp32
@@ -931,31 +929,38 @@ int launch_fused(const void* x, int x_bf16, const void* codes,
 //     threads of a slice share their rows' words by shuffles: every
 //     activation is loaded and quantized once a block, with no pass over
 //     x before the codes stream;
-//   * the packed fields are widened in registers, exactly, to their biased
-//     unsigned codes: shifted and masked 4 bytes (4 columns) at a time, then
-//     a 4 x 4 byte transpose (8 byte permutes) leaves one word of 4
-//     consecutive K codes a column (widen4); dp4a.s32.u32 multiplies them
-//     with the signed activation words, and the bias comes off once at the
+//   * a 4 x 4 byte transpose (transpose4, 8 byte permutes) turns 4 K rows
+//     of 4 columns into one word of 4 consecutive K codes a column. Int8
+//     codes go in as they are and dp4a (s32 x s32) multiplies them with the
+//     activation words. Packed fields are first shifted and masked 4 bytes
+//     (4 columns) at a time to their biased unsigned codes (widen4);
+//     dp4a.s32.u32 multiplies those, and the bias comes off once at the
 //     end: sum(a (c + 2^(b-1))) - 2^(b-1) sum(a), exact in int32. At M 8 and
 //     2 bits a byte costs ~12 instructions (8 dp4a): issue-bound at about
 //     the bytes bound, the same finding as K4's FMA stream; mma.sync's
 //     m16n8k32 would cut the dp4a but needs the codes in fragment order (a
 //     shuffle a fragment), and a decode step is set by the per-GEMM
-//     latency of its 111 small GEMMs, not by either;
-//   * one launch: each block adds its column tile's partial sums (and,
-//     with the fp32 loader, its row sums) into the wrapper's workspace with
-//     atomics, 4 columns an atomic (red.global.add.v4.f32: the sums are
-//     integers below 2^24 for K <= 16384, so fp32 adds them exactly in any
-//     order), then takes a ticket from its tile's counter; the last block
-//     of a tile to arrive writes the epilogue and zeroes the tile's sums,
-//     row sums and counter, so the workspace is zero again for the next
-//     call (the same bits every call). One split writes the epilogue
+//     latency of its small GEMMs, not by either;
+//   * one launch: each block splits its column tile's exact int32 partials
+//     v into hi = v >> 12 and lo = v & 4095 and adds each into its plane of
+//     the wrapper's workspace with atomics, 4 columns an atomic
+//     (red.global.add.v4.f32), with the fp32 loader also its row sums (int32
+//     atomics), then takes a ticket from its tile's counter; the last block
+//     of a tile to arrive rebuilds 4096 hi + lo in int32, writes the
+//     epilogue and zeroes the tile's planes, row sums and counter, so the
+//     workspace is zero again for the next call (the same bits every call).
+//     fp32 adds integers exactly below 2^24: the lo sums stay below 4096 x
+//     4095 for at most MAX_SPLITS = 4096 splits, the hi sums below 2^19 for
+//     K < 2^17, in any order, where a single plane of int8 sums (up to K x
+//     2^14: 2^25 at K 2048) would round. One split writes the epilogue
 //     directly. Per-element int32 atomics cost more than the rest of a
 //     mid-size GEMM at M 8 (1024 a block, the splits of a tile on the same
 //     addresses).
-//   Measured on an H100: at M 8 (168-198 registers, 2 blocks an SM) the
-//   stream is latency-bound, not bytes-bound: 7.7-15 us a GEMM of the mixed
-//   decode step, the 2-bit head at 0.14 of its bytes bound.
+//   Measured on an H100: at M 8 (168-203 registers, 2 blocks an SM) the
+//   stream is latency-bound, not bytes-bound: 9-16 us a GEMM of tinyllama's
+//   int8 decode step, 8-15 us of its mixed 2/4-bit one, the heads at 0.48
+//   (int8) and 0.15 (2-bit) of their bytes bound; the second plane costs
+//   about 0.2 us a GEMM.
 //
 // itile:: (prefill, M > 8) bound by int8 operations: tensor cores through
 //   wgmma (m64n128k32, s32 accumulators), K1/K4's tile skeleton (tile::):
@@ -964,25 +969,32 @@ int launch_fused(const void* x, int x_bf16, const void* codes,
 //     swizzled row of int8);
 //   * wgmma takes 8-bit operands K-major only: A, the activation codes
 //     (M, K), is K-major as stored, loaded by TMA (128-byte swizzle); the
-//     packed codes are N-contiguous, so the producer's first thread loads
-//     the raw packed tile by TMA (a ring of 4, 3 ahead) and all 128
-//     producer threads widen it, thread t column t, into the K-major,
-//     128-byte-swizzled int8 B tile: the `per` codes of one byte are
-//     consecutive in K, so 16/per bytes of a column widen into one 16-byte
-//     chunk of its row (the same byte permutes, the bias taken off
-//     bytewise), one 16-byte store each;
+//     codes are N-contiguous ((K, N) as export lays them out, no second
+//     copy), so the producer's first thread loads the raw tile by TMA (a
+//     ring of 4, 3 ahead) and all 128 producer threads transpose it into
+//     the K-major, 128-byte-swizzled int8 B tile (widen): int8 codes 16 K
+//     rows x 4 columns at a time, read as words and transposed by
+//     transpose4 into one 16-byte chunk a column; packed codes a column a
+//     thread, 16/per bytes of it widened into one chunk (the `per` codes of
+//     one byte are consecutive in K; the bias taken off bytewise);
 //   * the fp32 loader quantizes x first (prep: a block a row) into the
 //     wrapper's workspace as int8 rows padded to 16 bytes, with their int32
 //     row sums; int8 x whose rows TMA cannot take is copied there the same
-//     way; packed rows not 16-byte aligned go through tile::pad_codes;
+//     way; code rows not 16-byte aligned go through tile::pad_codes;
 //   * the epilogue stages the fp32 tile in shared memory and writes it a
 //     row at a time in 16-byte stores (written straight from the wgmma
 //     fragments, half of every 32-byte sector would go to waste);
 //   * ragged M/N/K: TMA zero-fills past M and K (a zero activation adds
 //     nothing, whatever the code), the epilogue masks its stores, and no
-//     packed row >= ceil(K/per) is read.
+//     code row >= ceil(K/per) is read.
 
+// Every kernel K5 and K6 launch is a template over one of these tags, so
+// that its name carries its wrapper's (a profile charges it to K5 or K6).
+struct int_matmul_kernel;
 struct int_matmul_packed_kernel;
+template <int BITS>
+using ITag = std::conditional_t<BITS == 8, int_matmul_kernel,
+                                int_matmul_packed_kernel>;
 
 // The activation code of fp32 v on the grid [alpha, beta, s]: clip,
 // subtract, IEEE divide, round half to even, take off the offset.
@@ -1000,145 +1012,6 @@ __device__ __forceinline__ float int_epilogue(int acc, float r, float es,
                    c);
 }
 
-// Activation code (gm, gk) at flat index idx.
-template <bool QUANT>
-__device__ __forceinline__ int load_act(const void* x, size_t idx,
-                                        float alpha, float beta, float s,
-                                        int offset) {
-  if constexpr (QUANT) {
-    return quant_act(static_cast<const float*>(x)[idx], alpha, beta, s,
-                     offset);
-  } else {
-    return static_cast<const int8_t*>(x)[idx];
-  }
-}
-
-template <bool QUANT, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-int_matmul_kernel(const void* __restrict__ x,
-                  const int8_t* __restrict__ codes,
-                  const float* __restrict__ eff_scale,
-                  const float* __restrict__ eff_bias,
-                  const float* __restrict__ rowsum,
-                  const float* __restrict__ cst,
-                  const float* __restrict__ grid, int offset,
-                  float* __restrict__ out, int M, int N, int K) {
-  static_assert(BK % 4 == 0, "K tile must be whole 4-code words");
-  constexpr int KQ = BK / 4;
-  constexpr int RT = BM / TM;
-  constexpr int CT = BN / TN;
-  constexpr int NT = RT * CT;
-  __shared__ int xs[KQ][BM + 1];
-  __shared__ int cs[KQ][BN];
-
-  const int tid = threadIdx.x;
-  const int ty = tid / CT;
-  const int tx = tid % CT;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  float alpha = 0.f, beta = 0.f, s = 1.f;
-  if constexpr (QUANT) {
-    alpha = grid[0];
-    beta = grid[1];
-    s = grid[2];
-  }
-
-  int acc[TM][TN];
-  int rs[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    rs[i] = 0;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-  }
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * KQ; i += NT) {
-      const int r = i / KQ, q = i % KQ;
-      const int gm = m0 + r;
-      unsigned word = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gk = k0 + 4 * q + j;
-        if (gm < M && gk < K)
-          word |= (static_cast<unsigned>(load_act<QUANT>(
-                       x, (size_t)gm * K + gk, alpha, beta, s, offset)) &
-                   0xffu)
-                  << (8 * j);
-      }
-      xs[q][r] = static_cast<int>(word);
-    }
-    for (int i = tid; i < KQ * BN; i += NT) {
-      const int q = i / BN, c = i % BN;
-      const int gn = n0 + c;
-      unsigned word = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gk = k0 + 4 * q + j;
-        if (gk < K && gn < N)
-          word |= (static_cast<unsigned>(codes[(size_t)gk * N + gn]) & 0xffu)
-                  << (8 * j);
-      }
-      cs[q][c] = static_cast<int>(word);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int q = 0; q < KQ; ++q) {
-      int a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[q][ty + i * RT];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = cs[q][tx + j * CT];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-        if constexpr (QUANT) rs[i] = __dp4a(a[i], 0x01010101, rs[i]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = ty + i * RT + m0;
-    if (m >= M) continue;
-    float r;
-    if constexpr (QUANT) {
-      r = static_cast<float>(rs[i]);
-    } else {
-      r = rowsum[m];
-    }
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * CT;
-      if (n < N)
-        out[(size_t)m * N + n] =
-            int_epilogue(acc[i][j], r, eff_scale[n], eff_bias[n], cst[n]);
-    }
-  }
-}
-
-// K5's tiles: 8 x 32 with a 256-deep K tile at decode (one output a
-// thread), 64 x 64 x 64 with 4 x 4 register tiles above.
-template <bool QUANT>
-void launch_k5(const void* x, const int8_t* codes, const float* eff_scale,
-               const float* eff_bias, const float* rowsum, const float* cst,
-               const float* grid, int offset, float* out, int M, int N,
-               int K, cudaStream_t stream) {
-  if (M <= 8) {
-    const dim3 grd((N + 31) / 32, (M + 7) / 8);
-    int_matmul_kernel<QUANT, 8, 32, 256, 1, 1><<<grd, 8 * 32, 0, stream>>>(
-        x, codes, eff_scale, eff_bias, rowsum, cst, grid, offset, out, M, N,
-        K);
-  } else {
-    const dim3 grd((N + 63) / 64, (M + 63) / 64);
-    int_matmul_kernel<QUANT, 64, 64, 64, 4, 4><<<grd, 16 * 16, 0, stream>>>(
-        x, codes, eff_scale, eff_bias, rowsum, cst, grid, offset, out, M, N,
-        K);
-  }
-}
-
 // d = c + the dot product of the four signed bytes of a (activation codes)
 // with the four unsigned bytes of b (biased weight codes).
 __device__ __forceinline__ int dp4a_su(uint32_t a, uint32_t b, int c) {
@@ -1147,27 +1020,11 @@ __device__ __forceinline__ int dp4a_su(uint32_t a, uint32_t b, int c) {
   return d;
 }
 
-// The biased codes of 4 consecutive K rows of 4 columns. Byte c of w0 is
-// column c's byte of a packed row: at 2 bits the group's one row (K rows
-// 0-3 in bits 0-1, 2-3, 4-5, 6-7; w1 unused), at 4 bits the group's first
-// row (K rows 0-1 in its nibbles) and w1 the second (K rows 2-3). f_j
-// holds K row j of the 4 columns (byte c: column c); the 4 x 4 byte
-// transpose leaves col[c] = column c's K rows 0..3 in bytes 0..3.
-template <int BITS>
-__device__ __forceinline__ void widen4(uint32_t w0, uint32_t w1,
-                                       uint32_t (&col)[4]) {
-  uint32_t f0, f1, f2, f3;
-  if constexpr (BITS == 2) {
-    f0 = w0 & 0x03030303u;
-    f1 = (w0 >> 2) & 0x03030303u;
-    f2 = (w0 >> 4) & 0x03030303u;
-    f3 = (w0 >> 6) & 0x03030303u;
-  } else {
-    f0 = w0 & 0x0F0F0F0Fu;
-    f1 = (w0 >> 4) & 0x0F0F0F0Fu;
-    f2 = w1 & 0x0F0F0F0Fu;
-    f3 = (w1 >> 4) & 0x0F0F0F0Fu;
-  }
+// The 4 x 4 byte transpose: f_j holds K row j of 4 columns (byte c: column
+// c); col[c] gets column c's K rows 0..3 in bytes 0..3.
+__device__ __forceinline__ void transpose4(uint32_t f0, uint32_t f1,
+                                           uint32_t f2, uint32_t f3,
+                                           uint32_t (&col)[4]) {
   const uint32_t t0 = __byte_perm(f0, f1, 0x5140);  // f0.0 f1.0 f0.1 f1.1
   const uint32_t t1 = __byte_perm(f2, f3, 0x5140);  // f2.0 f3.0 f2.1 f3.1
   const uint32_t t2 = __byte_perm(f0, f1, 0x7362);  // f0.2 f1.2 f0.3 f1.3
@@ -1178,8 +1035,25 @@ __device__ __forceinline__ void widen4(uint32_t w0, uint32_t w1,
   col[3] = __byte_perm(t2, t3, 0x7632);
 }
 
+// The biased codes of 4 consecutive K rows of 4 columns. Byte c of w0 is
+// column c's byte of a packed row: at 2 bits the group's one row (K rows
+// 0-3 in bits 0-1, 2-3, 4-5, 6-7; w1 unused), at 4 bits the group's first
+// row (K rows 0-1 in its nibbles) and w1 the second (K rows 2-3); then
+// transpose4: col[c] = column c's K rows 0..3 in bytes 0..3.
+template <int BITS>
+__device__ __forceinline__ void widen4(uint32_t w0, uint32_t w1,
+                                       uint32_t (&col)[4]) {
+  if constexpr (BITS == 2) {
+    transpose4(w0 & 0x03030303u, (w0 >> 2) & 0x03030303u,
+               (w0 >> 4) & 0x03030303u, (w0 >> 6) & 0x03030303u, col);
+  } else {
+    transpose4(w0 & 0x0F0F0F0Fu, (w0 >> 4) & 0x0F0F0F0Fu, w1 & 0x0F0F0F0Fu,
+               (w1 >> 4) & 0x0F0F0F0Fu, col);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// istream: K6's decode path
+// istream: K5's and K6's decode path
 // ---------------------------------------------------------------------------
 namespace istream {
 
@@ -1192,16 +1066,19 @@ constexpr int GROUP = 4;       // K rows of a group: one packed row at 2 bits
 constexpr int DEPTH = 8;       // groups a thread has in flight + 1
 constexpr int WS_ROWS = 8;     // rows of a column tile's sums in the workspace
 
-// Largest K whose int32 sums the workspace adds exactly in fp32: every
-// partial and total sum of a column is an integer below 2^24 (|a c| <=
-// 128 x 8 at 4 bits), so the atomic fp32 adds are exact in any order.
-constexpr int MAX_SPLIT_K = 16384;
+// A split's int32 partial v goes into the workspace as two fp32 integers,
+// hi = v >> LO_BITS and lo = v & (2^LO_BITS - 1), each added exactly (below
+// 2^24) in any order: lo sums stay below MAX_SPLITS x 4095 < 2^24, hi sums
+// below 2^19 for K < 2^17 (|v| <= chunk x 2^14).
+constexpr int LO_BITS = 12;
+constexpr int MAX_SPLITS = 4096;
 
-// The workspace of one launch over `tiles` column tiles, 4-byte words:
-// sums [tiles][WS_ROWS][BN] fp32, row sums [tiles][WS_ROWS] int32,
-// arrival counters [tiles] int32; zero between calls.
+// The workspace of one launch over `tiles` column tiles, 4-byte words: the
+// hi and the lo plane [tiles][WS_ROWS][BN] fp32 each, row sums
+// [tiles][WS_ROWS] int32, arrival counters [tiles] int32; zero between
+// calls.
 long long ws_bytes_for(long long tiles) {
-  return 4 * tiles * (1 + WS_ROWS + WS_ROWS * BN);
+  return 4 * tiles * (1 + WS_ROWS + 2 * WS_ROWS * BN);
 }
 
 // Adds 4 fp32 to 4 consecutive words of global memory (16-byte aligned) in
@@ -1213,9 +1090,10 @@ __device__ __forceinline__ void red_add_v4(float* p, const float (&v)[4]) {
 }
 
 // Shared memory of a block: each thread's ring of DEPTH groups, a group
-// its L 16-byte code loads and one 16-byte slot of activations (after the
-// walk the ring holds the warps' sums), then the warps' row sums [4][CG],
-// the block's [CG] and the last-block flag.
+// its L 16-byte code loads (4 at 8 bits, 2 at 4, 1 at 2) and one 16-byte
+// slot of activations (after the walk the ring holds the warps' sums),
+// then the warps' row sums [4][CG], the block's [CG] and the last-block
+// flag. At 8 bits: 80 KB, two blocks an SM.
 template <int MR, int BITS>
 struct Smem {
   static constexpr int L = GROUP * BITS / 8;   // 16-byte code loads a group
@@ -1278,28 +1156,37 @@ __device__ __forceinline__ uint32_t act_word(uint4 v, int k0, int K,
   }
 }
 
-// acc[m][c] += a[m][k] * (code[k][c] + 2^(b-1)) over the 4 K rows of one
-// group; `raw` holds the group's 16-byte row loads (one row of 2-bit
-// bytes, two of 4-bit), xw the group's activation words, one a row.
+// acc[m][c] += a[m][k] * code[k][c] over the 4 K rows of one group, the
+// packed codes biased by 2^(b-1); `raw` holds the group's 16-byte row
+// loads (4 rows of int8, one row of 2-bit bytes, two of 4-bit), xw the
+// group's activation words, one a row.
 template <int MR, int BITS>
 __device__ __forceinline__ void accumulate(int (&acc)[MR][COLS],
                                            const uint4 (&raw)[GROUP * BITS /
                                                               8],
                                            const uint32_t (&xw)[MR]) {
-  const uint32_t a[4] = {raw[0].x, raw[0].y, raw[0].z, raw[0].w};
-  uint32_t b[4] = {0u, 0u, 0u, 0u};
-  if constexpr (BITS == 4) {
-    b[0] = raw[1].x, b[1] = raw[1].y, b[2] = raw[1].z, b[3] = raw[1].w;
+  uint32_t w[GROUP * BITS / 8][4];
+#pragma unroll
+  for (int l = 0; l < GROUP * BITS / 8; ++l) {
+    w[l][0] = raw[l].x, w[l][1] = raw[l].y, w[l][2] = raw[l].z;
+    w[l][3] = raw[l].w;
   }
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     uint32_t col[4];
-    widen4<BITS>(a[q], b[q], col);
+    if constexpr (BITS == 8)
+      transpose4(w[0][q], w[1][q], w[2][q], w[3][q], col);
+    else
+      widen4<BITS>(w[0][q], BITS == 4 ? w[GROUP * BITS / 8 - 1][q] : 0u,
+                   col);
 #pragma unroll
     for (int c = 0; c < 4; ++c)
 #pragma unroll
       for (int m = 0; m < MR; ++m)
-        acc[m][4 * q + c] = dp4a_su(xw[m], col[c], acc[m][4 * q + c]);
+        acc[m][4 * q + c] =
+            BITS == 8 ? __dp4a(static_cast<int>(xw[m]),
+                               static_cast<int>(col[c]), acc[m][4 * q + c])
+                      : dp4a_su(xw[m], col[c], acc[m][4 * q + c]);
   }
 }
 
@@ -1319,7 +1206,7 @@ __global__ void __launch_bounds__(NT)
            int K, int chunk_groups, int vec, int x_vec) {
   using S = Smem<MR, BITS>;
   constexpr int PER = 8 / BITS, L = S::L, LX = S::LX;
-  constexpr int BIAS = 1 << (BITS - 1);
+  constexpr int BIAS = BITS == 8 ? 0 : 1 << (BITS - 1);
   extern __shared__ uint4 smem[];
   uint4* const ring = smem;
   int* const rsw = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(smem) +
@@ -1335,7 +1222,7 @@ __global__ void __launch_bounds__(NT)
   const int groups = (K + GROUP - 1) / GROUP;
   const int g_begin = blockIdx.y * chunk_groups;
   const int g_end = min(groups, g_begin + chunk_groups);
-  const int rows = (K + PER - 1) / PER;  // stored (packed) rows
+  const int rows = (K + PER - 1) / PER;  // stored rows
   const bool xrow = cg < M;              // this thread loads row cg of x
 
   int acc[MR][COLS];
@@ -1445,7 +1332,8 @@ __global__ void __launch_bounds__(NT)
   __syncthreads();
 
   // this split's exact sums, the bias taken off: direct to the epilogue
-  // with one split, else into the workspace, 4 columns an atomic
+  // with one split, else as hi and lo into the workspace's two planes, 4
+  // columns an atomic
   const int rsum = tid < CG ? rsb[tid] : 0;
   if (gridDim.y == 1) {
     for (int i = tid; i < MR * BN; i += NT) {
@@ -1459,21 +1347,28 @@ __global__ void __launch_bounds__(NT)
     }
     return;
   }
-  float* const acc_ws = reinterpret_cast<float*>(ws);
-  int* const rs_ws = ws + (size_t)gridDim.x * WS_ROWS * BN;
+  const size_t plane = (size_t)gridDim.x * WS_ROWS * BN;
+  float* const hi_ws = reinterpret_cast<float*>(ws);
+  float* const lo_ws = hi_ws + plane;
+  int* const rs_ws = ws + 2 * plane;
   int* const cnt = rs_ws + (size_t)gridDim.x * WS_ROWS;
   for (int i = tid; i < MR * BN / 4; i += NT) {
     const int m = i / (BN / 4), c = 4 * (i % (BN / 4));
     if (m >= M) continue;
-    float v[4];
+    float hi[4], lo[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      v[e] = n0 + c + e < N
-                 ? static_cast<float>(red[0][m][c + e] + red[1][m][c + e] +
-                                      red[2][m][c + e] + red[3][m][c + e] -
-                                      BIAS * rsb[m])
-                 : 0.f;
-    red_add_v4(&acc_ws[((size_t)tile_n * WS_ROWS + m) * BN + c], v);
+    for (int e = 0; e < 4; ++e) {
+      const int v = n0 + c + e < N
+                        ? red[0][m][c + e] + red[1][m][c + e] +
+                              red[2][m][c + e] + red[3][m][c + e] -
+                              BIAS * rsb[m]
+                        : 0;
+      hi[e] = static_cast<float>(v >> LO_BITS);  // arithmetic shift
+      lo[e] = static_cast<float>(v & ((1 << LO_BITS) - 1));
+    }
+    const size_t at = ((size_t)tile_n * WS_ROWS + m) * BN + c;
+    red_add_v4(&hi_ws[at], hi);
+    red_add_v4(&lo_ws[at], lo);
   }
   if (QUANT && tid < M) atomicAdd(&rs_ws[tile_n * WS_ROWS + tid], rsum);
   __threadfence();
@@ -1481,17 +1376,20 @@ __global__ void __launch_bounds__(NT)
   if (tid == 0) *last = atomicAdd(&cnt[tile_n], 1) == (int)gridDim.y - 1;
   __syncthreads();
   if (!*last) return;
-  // the tile's last block: every split's sums are in; the epilogue, then
-  // the tile's slice of the workspace back to zero
+  // the tile's last block: every split's sums are in; 2^12 hi + lo, the
+  // epilogue, then the tile's slice of the workspace back to zero
   __threadfence();
   for (int i = tid; i < MR * BN / 4; i += NT) {
     const int m = i / (BN / 4), c = 4 * (i % (BN / 4));
     if (m >= M) continue;
-    float4* const p = reinterpret_cast<float4*>(
-        &acc_ws[((size_t)tile_n * WS_ROWS + m) * BN + c]);
-    const float4 v4 = __ldcg(p);
-    *p = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+    const size_t at = ((size_t)tile_n * WS_ROWS + m) * BN + c;
+    float4* const ph = reinterpret_cast<float4*>(&hi_ws[at]);
+    float4* const pl = reinterpret_cast<float4*>(&lo_ws[at]);
+    const float4 h4 = __ldcg(ph), l4 = __ldcg(pl);
+    *ph = make_float4(0.f, 0.f, 0.f, 0.f);
+    *pl = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float hi[4] = {h4.x, h4.y, h4.z, h4.w};
+    const float lo[4] = {l4.x, l4.y, l4.z, l4.w};
     const float r = QUANT
                         ? static_cast<float>(__ldcg(&rs_ws[tile_n * WS_ROWS + m]))
                         : rowsum[m];
@@ -1499,9 +1397,10 @@ __global__ void __launch_bounds__(NT)
     for (int e = 0; e < 4; ++e) {
       const int n = n0 + c + e;
       if (n < N)
-        out[(size_t)m * N + n] = int_epilogue(static_cast<int>(v[e]), r,
-                                              eff_scale[n], eff_bias[n],
-                                              cst[n]);
+        out[(size_t)m * N + n] = int_epilogue(
+            static_cast<int>(hi[e]) * (1 << LO_BITS) +
+                static_cast<int>(lo[e]),
+            r, eff_scale[n], eff_bias[n], cst[n]);
     }
   }
   __syncthreads();
@@ -1516,7 +1415,7 @@ cudaError_t launch_mr(dim3 grid_dim, const void* x, const uint8_t* codes,
                       float* out, int* ws, int M, int N, int K,
                       int chunk_groups, int vec, int x_vec,
                       cudaStream_t stream) {
-  auto fn = kernel<int_matmul_packed_kernel, MR, BITS, QUANT>;
+  auto fn = kernel<ITag<BITS>, MR, BITS, QUANT>;
   constexpr int smem = Smem<MR, BITS>::BYTES;
   static std::atomic<std::uint64_t> opted{0};
   const cudaError_t err = opt_in_smem(fn, smem, opted);
@@ -1547,10 +1446,9 @@ int launch(const void* x, const uint8_t* codes, const float* es,
   }
   const long long tiles = (N + BN - 1) / BN;
   if (M < 1 || M > WS_ROWS || chunk <= 0 || chunk % GROUP || splits < 1 ||
-      splits > 65535 || (long long)splits * chunk < K ||
+      splits > MAX_SPLITS || (long long)splits * chunk < K ||
       tiles > 0x7fffffffLL ||
-      (splits > 1 && (K > MAX_SPLIT_K || ws == nullptr ||
-                      ws_bytes < ws_bytes_for(tiles))))
+      (splits > 1 && (ws == nullptr || ws_bytes < ws_bytes_for(tiles))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
   // a group's activations, one asynchronous copy: 16 bytes of fp32 or 4 of
@@ -1574,7 +1472,7 @@ int launch(const void* x, const uint8_t* codes, const float* es,
 }  // namespace istream
 
 // ---------------------------------------------------------------------------
-// itile: K6's prefill path
+// itile: K5's and K6's prefill path
 // ---------------------------------------------------------------------------
 namespace itile {
 
@@ -1596,8 +1494,8 @@ template <int BITS>
 struct Layout {
   static constexpr int A_BYTES = BM * ROW;         // 16 KB
   static constexpr int B_BYTES = BN * ROW;         // 16 KB
-  static constexpr int RAW_ROWS = BK * BITS / 8;   // 32 or 64
-  static constexpr int RAW_BYTES = RAW_ROWS * BN;  // 4 or 8 KB
+  static constexpr int RAW_ROWS = BK * BITS / 8;   // 32, 64 or 128
+  static constexpr int RAW_BYTES = RAW_ROWS * BN;  // 4, 8 or 16 KB
   static constexpr int B_OFF = STAGES * A_BYTES;
   static constexpr int RAW_OFF = B_OFF + STAGES * B_BYTES;
   static constexpr int BAR_OFF = RAW_OFF + RAW_STAGES * RAW_BYTES;
@@ -1632,13 +1530,45 @@ __device__ __forceinline__ void wgmma_s8(uint32_t (&d)[64], uint64_t da,
 #undef R16
 #undef R4
 
-// Widens one raw tile (RAW_ROWS packed rows x 128 columns at `raw`) into
-// the int8 B tile at `bt`: column t is B row t, K code k of the tile at
-// 16-byte chunk (k / 16) ^ (t % 8) of that row (the 128-byte swizzle).
-// Thread t (of the 128 producer threads) widens column t: 16/per bytes of
-// it, read down the column, make one chunk.
+// Widens one raw tile (RAW_ROWS code rows x 128 columns at `raw`) into
+// the int8 B tile at `bt`: column n is B row n, K code k of the tile at
+// 16-byte chunk (k / 16) ^ (n % 8) of that row (the 128-byte swizzle). Run
+// by the 128 producer threads, thread t.
+//
+// Int8 codes: the tile is 256 units of 16 K rows x 4 columns, two a
+// thread: lane l takes column quad l, so that a warp's word loads of one
+// row meet 32 banks, and chunk j = (2 w + u + (l / 2) % 4) % 8 of its unit
+// u (w the thread's warp), so that the 8 lanes of each quarter-warp's
+// 16-byte stores meet 8 distinct chunks; transpose4 turns 4 rows of the 4
+// columns into 4 words of 4 K codes, one a column.
+// Packed codes: thread t widens column t: 16/per bytes of it, read down
+// the column, make one chunk.
 template <int BITS>
 __device__ __forceinline__ void widen(const uint8_t* raw, uint8_t* bt, int t) {
+  if constexpr (BITS == 8) {
+    const int lane = t & 31, w = t >> 5;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = (2 * w + u + ((lane >> 1) & 3)) & 7;
+      const uint32_t* src =
+          reinterpret_cast<const uint32_t*>(raw + 16 * j * BN) + lane;
+      uint32_t v[16];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) v[r] = src[r * (BN / 4)];
+      uint32_t col[4][4];  // [K rows 4h .. 4h + 3][column]
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        transpose4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3],
+                   col[h]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int n = 4 * lane + c;
+        *reinterpret_cast<uint4*>(bt + n * ROW + ((j ^ (n & 7)) << 4)) =
+            make_uint4(col[0][c], col[1][c], col[2][c], col[3][c]);
+      }
+    }
+    return;
+  }
   // biased b-bit codes to signed int8, bytewise: (c + 128 - 2^(b-1)) ^ 0x80
   constexpr uint32_t TO_SIGNED = BITS == 2 ? 0x7E7E7E7Eu : 0x78787878u;
   uint8_t* const row = bt + t * ROW;
@@ -1876,7 +1806,7 @@ int launch(const void* x, const uint8_t* codes, const float* es,
            const float* grid, int offset, float* out, void* ws,
            long long ws_bytes, int M, int N, int K, int x_prep,
            int codes_prep, cudaStream_t stream) {
-  using TAG = int_matmul_packed_kernel;
+  using TAG = ITag<BITS>;
   constexpr int PER = 8 / BITS;
   const int rows = (K + PER - 1) / PER;
   if (K <= 0 || (QUANT && !x_prep))
@@ -1936,7 +1866,7 @@ int launch(const void* x, const uint8_t* codes, const float* es,
 }  // namespace itile
 
 template <int BITS, bool QUANT>
-int launch_k6(const void* x, const uint8_t* codes, const float* es,
+int launch_int(const void* x, const uint8_t* codes, const float* es,
               const float* eb, const float* rowsum, const float* cst,
               const float* grid, int offset, float* out, int M, int N, int K,
               int path, int splits, int chunk, void* ws, long long ws_bytes,
@@ -1953,19 +1883,19 @@ int launch_k6(const void* x, const uint8_t* codes, const float* es,
 }
 
 template <int BITS>
-int launch_k6_any(const void* x, int quant, const uint8_t* codes,
+int launch_int_any(const void* x, int quant, const uint8_t* codes,
                   const float* es, const float* eb, const float* rowsum,
                   const float* cst, const float* grid, int act_bits,
                   float* out, int M, int N, int K, int path, int splits,
                   int chunk, void* ws, long long ws_bytes, int x_prep,
                   int codes_prep, cudaStream_t stream) {
   if (!quant)
-    return launch_k6<BITS, false>(x, codes, es, eb, rowsum, cst, grid, 0,
+    return launch_int<BITS, false>(x, codes, es, eb, rowsum, cst, grid, 0,
                                   out, M, N, K, path, splits, chunk, ws,
                                   ws_bytes, x_prep, codes_prep, stream);
   if (act_bits < 2 || act_bits > 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_k6<BITS, true>(x, codes, es, eb, rowsum, cst, grid,
+  return launch_int<BITS, true>(x, codes, es, eb, rowsum, cst, grid,
                                1 << (act_bits - 1), out, M, N, K, path,
                                splits, chunk, ws, ws_bytes, x_prep,
                                codes_prep, stream);
@@ -2005,59 +1935,40 @@ extern "C" int quant_matmul_fused(const void* x, int x_bf16,
 #undef FUSED
 }
 
-// K5. quant = 0: x is (M, K) int8 activation codes and rowsum (M,) fp32
-// their row sums (grid unused). quant = 1: x is (M, K) fp32, quantized in
-// the kernel on grid = [alpha, beta, s] (fp32, device) at act_bits in
-// [2, 8], and the row sums are taken in the kernel (rowsum unused).
-// codes (K, N) int8; eff_scale/eff_bias/cst (N,) fp32; out (M, N) fp32;
-// all contiguous, on the device of `stream`. Returns
-// cudaErrorInvalidValue for act_bits outside [2, 8] when quant, else
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int int_matmul_i8(const void* x, int quant, const int8_t* codes,
-                             const float* eff_scale, const float* eff_bias,
-                             const float* rowsum, const float* cst,
-                             const float* grid, int act_bits, float* out,
-                             int M, int N, int K, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (quant) {
-    if (act_bits < 2 || act_bits > 8)
-      return static_cast<int>(cudaErrorInvalidValue);
-    launch_k5<true>(x, codes, eff_scale, eff_bias, rowsum, cst, grid,
-                    1 << (act_bits - 1), out, M, N, K, s);
-  } else {
-    launch_k5<false>(x, codes, eff_scale, eff_bias, rowsum, cst, grid, 0, out,
-                     M, N, K, s);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K6: as int_matmul_i8, with codes (ceil(K/per), N) uint8 packing `bits` in
-// {2, 4} a code (per = 8 / bits; quant/pack.py) and K the logical fan-in.
-// path 0 (M <= 8): the split-K stream, `splits` splits of `chunk` K rows (a
-// multiple of 4), and with splits > 1 `ws` the zeroed int32 workspace of
-// istream::ws_bytes_for(ceil(N / 128)) bytes that the launch leaves zeroed;
-// path 1: the int8 wgmma tiles, with x_prep / codes_prep as the wrapper
-// decided them (x_prep always with quant) and `ws` scratch for them (see
-// itile::launch). `ws_bytes` is the workspace's size. Returns
+// K5 (bits 8: codes (K, N) int8) and K6 (bits 2 or 4: codes
+// (ceil(K/per), N) uint8 packing `bits` a code, per = 8 / bits;
+// quant/pack.py), K the logical fan-in. quant = 0: x is (M, K) int8
+// activation codes and rowsum (M,) fp32 their row sums (grid unused).
+// quant = 1: x is (M, K) fp32, quantized in the kernel on grid = [alpha,
+// beta, s] (fp32, device) at act_bits in [2, 8], and the row sums are taken
+// in the kernel (rowsum unused). eff_scale/eff_bias/cst (N,) fp32; out
+// (M, N) fp32; all contiguous, on the device of `stream`. path 0 (M <= 8
+// or K = 0): the split-K stream, `splits` splits (at most 4096) of `chunk`
+// K rows (a multiple of 4), and with splits > 1 `ws` the zeroed workspace
+// of istream::ws_bytes_for(ceil(N / 128)) bytes that the launch leaves
+// zeroed; path 1: the int8 wgmma tiles, with x_prep / codes_prep as the
+// wrapper decided them (x_prep always with quant) and `ws` scratch for them
+// (see itile::launch). `ws_bytes` is the workspace's size. Returns
 // cudaErrorInvalidValue for other bits, paths or act_bits, a workspace too
 // small or operands TMA cannot take unprepared, else cudaGetLastError()
 // after the last launch (0 = launched).
-extern "C" int int_matmul_packed_u8(
-    const void* x, int quant, const uint8_t* packed, const float* eff_scale,
+extern "C" int int_matmul_fused(
+    const void* x, int quant, const void* codes, const float* eff_scale,
     const float* eff_bias, const float* rowsum, const float* cst,
     const float* grid, int act_bits, float* out, int M, int N, int K,
     int bits, int path, int splits, int chunk, void* ws, long long ws_bytes,
     int x_prep, int codes_prep, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-#define K6(B)                                                                \
-  launch_k6_any<B>(x, quant, packed, eff_scale, eff_bias, rowsum, cst, grid, \
-                   act_bits, out, M, N, K, path, splits, chunk, ws, ws_bytes, \
-                   x_prep, codes_prep, s)
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+#define INT(B)                                                              \
+  launch_int_any<B>(x, quant, c, eff_scale, eff_bias, rowsum, cst, grid,    \
+                    act_bits, out, M, N, K, path, splits, chunk, ws,        \
+                    ws_bytes, x_prep, codes_prep, s)
   switch (bits) {
-    case 2: return K6(2);
-    case 4: return K6(4);
+    case 8: return INT(8);
+    case 4: return INT(4);
+    case 2: return INT(2);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef K6
+#undef INT
 }
-

@@ -8,15 +8,17 @@ along K by ``quant/pack.py``) that of ``quant_matmul_packed_pallas``.
 
 ``y = eff_scale * (qx @ codes) + eff_bias * rowsum(qx) + const`` with the
 product of int8 activation and weight codes summed in int32:
-``int_matmul`` (K5) is the counterpart of ``int_matmul_pallas``,
-``int_matmul_packed`` (K6) of ``int_matmul_packed_pallas``. Each also
-takes fp32 activations with their per-tensor grid (``act``) and quantizes
-them in the kernel, as the serving path does. The source's header says
-what bounds the kernels and how they are laid out. K6 takes
-``kernel_path``'s two paths too: at M <= ``DECODE_M`` a split-K stream over
-``int_split_plan``'s chunks in one launch (the splits add their exact
-sums into a workspace of the device and stream that the last block of each
-column tile reads and zeroes), above it int8 ``wgmma`` tiles.
+``int_matmul`` (K5, int8 codes) is the counterpart of
+``int_matmul_pallas``, ``int_matmul_packed`` (K6) of
+``int_matmul_packed_pallas``. Each also takes fp32 activations with their
+per-tensor grid (``act``) and quantizes them in the kernel, as the serving
+path does. The source's header says what bounds the kernels and how they
+are laid out. K5 is K6's 8-bit case: both take ``kernel_path``'s two paths
+through one C entry: at M <= ``DECODE_M`` a split-K stream over
+``int_split_plan``'s chunks in one launch (the splits add their exact sums,
+split into a high and a low part, into a workspace of the device and
+stream that the last block of each column tile reads and zeroes), above it
+int8 ``wgmma`` tiles.
 
 K1 and K4 take x in bf16 (the serving path's activations) or fp32 and run
 one of two paths, picked from (M, N, K) alone and the same for both
@@ -60,8 +62,8 @@ _PATHS = {"stream": 0, "wgmma": 1}
 
 
 def kernel_path(m: int, n: int, k: int) -> str:
-    """The path K1, K4 and K6 take at (M, N, K): ``"stream"`` (decode, M <=
-    ``DECODE_M``, or K = 0) or ``"wgmma"`` (prefill). Never depends on
+    """The path K1, K4, K5 and K6 take at (M, N, K): ``"stream"`` (decode,
+    M <= ``DECODE_M``, or K = 0) or ``"wgmma"`` (prefill). Never depends on
     bits or dtype."""
     return "stream" if m <= DECODE_M or k == 0 else "wgmma"
 
@@ -85,52 +87,56 @@ def split_plan(n: int, k: int) -> tuple[int, int]:
     return -(-groups // chunk_groups), chunk_groups * _GROUP
 
 
-# K6's stream: the same blocks and groups, each split at least 16 groups
-# deep (its atomics cost ~M x 32 a block, so fewer, deeper splits than
-# K1/K4's); no split above K = 16384, where fp32 would no longer add the
-# int32 sums exactly; the workspace keeps 8 rows of sums a column tile
+# K5's and K6's stream: the same blocks and groups, each split at least 16
+# groups deep (its atomics cost ~M x 32 a block, so fewer, deeper splits
+# than K1/K4's). A split's int32 sums enter the workspace as fp32 integers
+# hi = v >> 12 and lo = v & 4095, which fp32 adds exactly (below 2^24) in
+# any order while splits x 4095 < 2^24: at most 4096 splits. The workspace
+# keeps 8 rows of sums a column tile in each of the two planes
 _INT_MIN_CHUNK_GROUPS = 16
-_INT_MAX_SPLIT_K = 16384
+_INT_MAX_SPLITS = 4096
 _WS_ROWS = 8
 
 
 @functools.lru_cache(maxsize=4096)
 def int_split_plan(n: int, k: int) -> tuple[int, int]:
-    """(splits, chunk) of K6's stream over N columns and K rows: ``chunk``
-    K rows a split, a whole number of groups of 4 (so of packed rows at 2
-    and 4 bits), ``splits = ceil(K / chunk)``; as many splits as keep
-    ceil(N / 128) x splits within one wave of ~2 blocks an SM, none
-    shallower than 16 groups, and one split past K = 16384. From (N, K)
-    alone."""
+    """(splits, chunk) of K5's and K6's stream over N columns and K rows:
+    ``chunk`` K rows a split, a whole number of groups of 4 (so of packed
+    rows at 2 and 4 bits), ``splits = ceil(K / chunk)``; as many splits as
+    keep ceil(N / 128) x splits within one wave of ~2 blocks an SM, none
+    shallower than 16 groups, never more than 4096 (the exact hi/lo
+    combine). From (N, K) alone, the same at every bits."""
     groups = max(1, -(-k // _GROUP))
-    if k > _INT_MAX_SPLIT_K:
-        return 1, groups * _GROUP
     n_tiles = -(-n // _STREAM_COLS)
     want = max(1, _STREAM_BLOCKS // max(1, n_tiles))
-    chunk_groups = max(_INT_MIN_CHUNK_GROUPS, -(-groups // want))
+    chunk_groups = max(_INT_MIN_CHUNK_GROUPS, -(-groups // want),
+                       -(-groups // _INT_MAX_SPLITS))
     return -(-groups // chunk_groups), chunk_groups * _GROUP
 
 
 def int_stream_ws_bytes(n: int) -> int:
-    """Bytes of K6's stream workspace over N columns, as
-    ``csrc/quant_matmul.cu:istream::ws_bytes_for`` lays it out: fp32 sums
-    (8 x 128 a tile), int32 row sums (8 a tile) and arrival counters for
-    each of the ceil(N / 128) column tiles."""
+    """Bytes of K5's and K6's stream workspace over N columns, as
+    ``csrc/quant_matmul.cu:istream::ws_bytes_for`` lays it out: the hi and
+    the lo plane of fp32 sums (8 x 128 a tile each), int32 row sums (8 a
+    tile) and arrival counters for each of the ceil(N / 128) column
+    tiles."""
     tiles = -(-n // _STREAM_COLS)
-    return 4 * tiles * (1 + _WS_ROWS + _WS_ROWS * _STREAM_COLS)
+    return 4 * tiles * (1 + _WS_ROWS + 2 * _WS_ROWS * _STREAM_COLS)
 
 
-# K6's stream workspaces, one a (device, stream), zero between calls: a
-# launch's last block of each column tile zeroes what the tile's splits
-# added. Two streams never share one, and a buffer that is outgrown stays
-# in _INT_WS_KEPT, since a CUDA graph that captured a call holds its address
+# K5's and K6's stream workspaces, one a (device, stream), zero between
+# calls: a launch's last block of each column tile zeroes what the tile's
+# splits added. Two streams never share one, and a buffer that is outgrown
+# stays in _INT_WS_KEPT, since a CUDA graph that captured a call holds its
+# address
 _INT_WS: dict[tuple, torch.Tensor] = {}
 _INT_WS_KEPT: list[torch.Tensor] = []
 
 
 def _int_stream_ws(device, stream: int, nbytes: int) -> torch.Tensor:
-    """The K6 workspace of ``device`` and the raw ``stream``, made (zeroed)
-    or grown (zeroed, doubled) where it holds fewer than ``nbytes``. During
+    """The K5/K6 stream workspace of ``device`` and the raw ``stream``, made
+    (zeroed) or grown (zeroed, doubled) where it holds fewer than
+    ``nbytes``. During
     a graph capture the zeroing is captured with it and the buffer comes
     from the graph's pool. Graphs captured on one stream share its buffer,
     so they must not be replayed at once on two streams."""
@@ -147,11 +153,12 @@ def _int_stream_ws(device, stream: int, nbytes: int) -> torch.Tensor:
 
 
 def _int_tile_prep(x, codes, m: int, n: int, k: int, quant: bool):
-    """(x_prep, codes_prep, workspace bytes) of K6's wgmma path, as
+    """(x_prep, codes_prep, workspace bytes) of K5's and K6's wgmma path, as
     ``csrc/quant_matmul.cu:itile::launch`` lays the workspace out: x goes
     through ``prep`` (int8 rows of a multiple of 16 bytes, with their int32
     row sums) when it is fp32 or its int8 rows are not 16-byte aligned;
-    codes through ``pad_codes`` unless their rows are 16-byte aligned."""
+    codes (int8 or packed) through ``pad_codes`` unless their rows are
+    16-byte aligned."""
     x_prep = quant or k % 16 != 0 or x.data_ptr() % 16 != 0
     codes_prep = n % 16 != 0 or codes.data_ptr() % 16 != 0
     nbytes = 0
@@ -243,17 +250,12 @@ def _fused_launch(wrapper, x, codes, scale, bias, rowsum, *, bits: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _int_kernel_fn(bits: int):
-    lib = _build.load("quant_matmul")
-    if bits == 8:
-        fn = lib.int_matmul_i8
-        tail = [ctypes.c_int] * 3
-    else:
-        fn = lib.int_matmul_packed_u8
-        tail = [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_longlong] \
-            + [ctypes.c_int] * 2
+def _int_fn():
+    fn = _build.load("quant_matmul").int_matmul_fused
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6 \
-        + [ctypes.c_int, ctypes.c_void_p] + tail + [ctypes.c_void_p]
+        + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -382,8 +384,8 @@ def _check_int(x, codes, eff_scale, eff_bias, rowsum, const, act, *,
 def _int_launch(wrapper, x, codes, eff_scale, eff_bias, rowsum, const, act,
                 *, bits: int, k: int) -> torch.Tensor:
     """Check, launch K5 (``bits`` 8) or K6 on the current stream without
-    synchronising, count the launch (K6: note its path, ``wrapper.path``);
-    raise if it was refused."""
+    synchronising, count one launch and note its path (``wrapper.path``,
+    ``kernel_path``'s tag); raise if it was refused."""
     if x.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not "
                          f"{x.device}")
@@ -396,39 +398,34 @@ def _int_launch(wrapper, x, codes, eff_scale, eff_bias, rowsum, const, act,
     grid, act_bits = act if act is not None else (None, 0)
     dev = x.get_device()
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    if bits == 8:
-        tail = (m, n, k)
+    path = kernel_path(m, n, k)
+    splits, chunk, x_prep, codes_prep = 1, 0, False, False
+    if path == "stream":
+        splits, chunk = int_split_plan(n, k)
+        nbytes = int_stream_ws_bytes(n) if splits > 1 else 0
+        ws = _int_stream_ws(dev, stream, nbytes) if nbytes else None
     else:
-        path = kernel_path(m, n, k)
-        splits, chunk, x_prep, codes_prep = 1, 0, False, False
-        if path == "stream":
-            splits, chunk = int_split_plan(n, k)
-            nbytes = int_stream_ws_bytes(n) if splits > 1 else 0
-            ws = _int_stream_ws(dev, stream, nbytes) if nbytes else None
-        else:
-            x_prep, codes_prep, nbytes = _int_tile_prep(
-                x, codes, m, n, k, act is not None)
-            # freed when this returns: the caching allocator hands it out
-            # again only to work that the stream runs after this launch
-            ws = torch.empty((nbytes,), dtype=torch.uint8, device=x.device) \
-                if nbytes else None
-        tail = (m, n, k, bits, _PATHS[path], splits, chunk,
-                None if ws is None else ws.data_ptr(),
-                0 if ws is None else ws.numel(), int(x_prep),
-                int(codes_prep))
+        x_prep, codes_prep, nbytes = _int_tile_prep(x, codes, m, n, k,
+                                                    act is not None)
+        # freed when this returns: the caching allocator hands it out again
+        # only to work that the stream runs after this launch
+        ws = torch.empty((nbytes,), dtype=torch.uint8, device=x.device) \
+            if nbytes else None
     with _current(dev):
-        rc = _int_kernel_fn(bits)(
+        rc = _int_fn()(
             x.data_ptr(), int(act is not None), codes.data_ptr(),
             eff_scale.data_ptr(), eff_bias.data_ptr(),
             None if rowsum is None else rowsum.data_ptr(),
             const.data_ptr(), None if grid is None else grid.data_ptr(),
-            act_bits, out.data_ptr(), *tail, stream)
+            act_bits, out.data_ptr(), m, n, k, bits, _PATHS[path], splits,
+            chunk, None if ws is None else ws.data_ptr(),
+            0 if ws is None else ws.numel(), int(x_prep), int(codes_prep),
+            stream)
     if rc != 0:
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA "
                            f"error {rc}")
     wrapper.launches += 1
-    if bits < 8:
-        wrapper.path = path
+    wrapper.path = path
     return out
 
 
@@ -458,6 +455,7 @@ def int_matmul(qx: torch.Tensor, codes: torch.Tensor,
 
 
 int_matmul.launches = 0
+int_matmul.path = None
 
 
 def int_matmul_packed(qx: torch.Tensor, packed: torch.Tensor,

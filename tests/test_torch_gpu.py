@@ -199,17 +199,19 @@ def test_serving_shapes_take_the_new_paths(cuda, mkn, path):
                                  (512, 2048, 256), (8, 2050, 300),
                                  (5, 4099, 130), (8, 2048, 5632),
                                  (9, 1001, 77), (300, 2050, 250),
-                                 (9, 0, 37)])
+                                 (9, 0, 37), (2, 333, 130),
+                                 (4, 2048, 2048)])
 def test_int_matmul_kernels_bit_equal_to_plain(cuda, mkn, bits, act_bits):
     """K5 (8-bit codes) and K6 (2/4-bit codes packed along K) with both
     loaders: int8 activation codes with their row sums, and fp32
     activations quantized in the kernel on a signed and an unsigned grid.
     Each bit for bit against its plain version (int32 sums are exact in any
     order; the epilogue is rounded as the plain version rounds it), and K6
-    bit for bit against K5 on the unpacked codes, on both of its paths
-    (M <= 8 the split-K stream, whose one launch leaves its workspace zero:
-    a second call gives the same bits; above, the int8 wgmma tiles), with
-    ragged M, N and K (N no multiple of 16, K no whole packed row)."""
+    bit for bit against K5 on the unpacked codes, both on their two paths
+    (M <= 8 or K = 0 the split-K stream, whose one launch leaves its
+    workspace zero: a second call gives the same bits; above, the int8
+    wgmma tiles), with ragged M, N and K (N no multiple of 16, K no whole
+    packed row) and M 1, 2, 4, 8, 9 and 512."""
     m, k, n = mkn
     g = torch.Generator(device=cuda).manual_seed(sum(mkn) + bits + act_bits)
     x = torch.randn((m, k), generator=g, device=cuda) * 1.5
@@ -229,8 +231,12 @@ def test_int_matmul_kernels_bit_equal_to_plain(cuda, mkn, bits, act_bits):
         want = int_matmul_ref(qx, codes, es, eb, rowsum, cst)
         k5 = int_matmul(qx, codes, es, eb, rowsum, cst)
         k5f = int_matmul(x, codes, es, eb, None, cst, act=(grid, act_bits))
+        k5again = int_matmul(x, codes, es, eb, None, cst,
+                             act=(grid, act_bits))
         torch.cuda.synchronize()
+        assert int_matmul.path == kernel_path(m, n, k)
         assert torch.equal(k5, want) and torch.equal(k5f, want)
+        assert torch.equal(k5again, k5f)
         if bits < 8:
             packed = pack_codes(codes, bits)
             wantp = int_matmul_packed_ref(qx, packed, es, eb, rowsum, cst,
@@ -246,20 +252,66 @@ def test_int_matmul_kernels_bit_equal_to_plain(cuda, mkn, bits, act_bits):
             assert torch.equal(wantp, want)
             assert torch.equal(k6, want) and torch.equal(k6f, want)
             assert torch.equal(again, k6f)
-    assert int_matmul.launches == before[0] + 4
+    assert int_matmul.launches == before[0] + 6
     assert int_matmul_packed.launches == before[1] + (6 if bits < 8 else 0)
 
 
+def _worst_case_operands(m, k, n, device):
+    """Activation and weight codes drawn in [100, 127] (random low bits):
+    every column sum of the int8 product passes 2^24 (at K 2048, at least
+    2.0e7), where one fp32 plane of split sums would round. The fp32
+    activations lie on the signed 8-bit grid's points of those codes."""
+    g = torch.Generator(device=device).manual_seed(k + m)
+    beta = torch.tensor(4.0, device=device)
+    s, _ = affine_grid(8, beta, True)
+    grid = torch.stack([-beta, beta, s])
+    c = torch.randint(100, 128, (m, k), generator=g, device=device)
+    x = (c + 128).to(torch.float32) * s - beta
+    codes = torch.randint(100, 128, (k, n), generator=g, device=device,
+                          dtype=torch.int8)
+    es = torch.rand((n,), generator=g, device=device) * 1e-5 + 1e-6
+    eb = (torch.rand((n,), generator=g, device=device) - 0.5) * 2e-4
+    cst = torch.rand((n,), generator=g, device=device) - 0.5
+    return x, grid, codes, es, eb, cst
+
+
+@pytest.mark.parametrize("m", [8, 512])
+@pytest.mark.parametrize("k", [2048, 5632, 9216])
+def test_int_matmul_bit_equal_where_column_sums_pass_2_24(cuda, k, m):
+    """K5 on the worst-case operand (codes in [100, 127]) at tinyllama's and
+    gemma2's K, on the stream (M 8: its splits' sums added as hi and lo
+    parts, each exact in fp32) and the tiles (M 512): bit for bit against
+    the plain version with both loaders, two calls identical."""
+    n = 300
+    x, grid, codes, es, eb, cst = _worst_case_operands(m, k, n, cuda)
+    qx, rowsum = quantize_act_ref(x, grid, 8)
+    assert int(qx.min()) >= 99
+    assert float((qx.double() @ codes.double()).min()) > 2**24
+    want = int_matmul_ref(qx, codes, es, eb, rowsum, cst)
+    got = int_matmul(qx, codes, es, eb, rowsum, cst)
+    fused = int_matmul(x, codes, es, eb, None, cst, act=(grid, 8))
+    again = int_matmul(x, codes, es, eb, None, cst, act=(grid, 8))
+    torch.cuda.synchronize()
+    assert int_matmul.path == kernel_path(m, n, k)
+    if m <= 8:
+        assert int_split_plan(n, k)[0] > 1
+    assert torch.equal(got, want) and torch.equal(fused, want)
+    assert torch.equal(again, fused)
+
+
 def test_int_matmul_packed_workspace_per_stream_and_in_graphs(cuda):
-    """K6's decode stream keeps one self-zeroing workspace a stream: calls
-    interleaved on two streams, and a CUDA graph captured after eager calls
-    on another stream (its workspace then made inside the capture), give
-    the plain version's bits, replay after replay."""
+    """K5's and K6's decode stream share one self-zeroing workspace a
+    stream: K5 and K6 calls interleaved on two streams, and CUDA graphs
+    captured after eager calls on another stream (the workspace then made
+    inside the capture), give the plain versions' bits, replay after
+    replay."""
     m, k, n, bits = 8, 2050, 300, 4
     g = torch.Generator(device=cuda).manual_seed(k + n)
     x = torch.randn((m, k), generator=g, device=cuda)
     codes = torch.randint(-8, 8, (k, n), generator=g, device=cuda,
                           dtype=torch.int8)
+    codes8 = torch.randint(-128, 128, (k, n), generator=g, device=cuda,
+                           dtype=torch.int8)
     packed = pack_codes(codes, bits)
     es = torch.rand((n,), generator=g, device=cuda) * 1e-3 + 1e-5
     eb = (torch.rand((n,), generator=g, device=cuda) - 0.5) * 2e-4
@@ -269,10 +321,14 @@ def test_int_matmul_packed_workspace_per_stream_and_in_graphs(cuda):
     qx, rowsum = quantize_act_ref(x, grid, 8)
     want = int_matmul_packed_ref(qx, packed, es, eb, rowsum, cst, bits=bits,
                                  k=k)
+    want8 = int_matmul_ref(qx, codes8, es, eb, rowsum, cst)
 
     def call():
         return int_matmul_packed(x, packed, es, eb, None, cst, bits=bits,
                                  k=k, act=(grid, 8))
+
+    def call8():
+        return int_matmul(x, codes8, es, eb, None, cst, act=(grid, 8))
 
     assert kernel_path(m, n, k) == "stream"
     assert int_split_plan(n, k)[0] > 1
@@ -284,20 +340,22 @@ def test_int_matmul_packed_workspace_per_stream_and_in_graphs(cuda):
     for _ in range(20):
         for s in pair:
             with torch.cuda.stream(s):
-                outs.append(call())
+                outs.append((call(), want))
+                outs.append((call8(), want8))
     for s in pair:
         main.wait_stream(s)
     torch.cuda.synchronize()
-    assert all(torch.equal(o, want) for o in outs)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = call()
-    for _ in range(3):
-        out.zero_()
-        graph.replay()
-        torch.cuda.synchronize()
-        assert torch.equal(out, want)
-    assert torch.equal(call(), want)
+    assert all(torch.equal(o, w) for o, w in outs)
+    for fn, w in ((call, want), (call8, want8)):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        for _ in range(3):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, w)
+        assert torch.equal(fn(), w)
 
 
 def _quant_pools(bits, hd, b=5, kvh=2, bs=8, mb=6, seed=0):
